@@ -5,24 +5,40 @@
 
 Phases, each printed on lines of its own; any failure raises and exits
 non-zero, and nothing is caught:
-  1. device: the card's name and power limit (nvidia-smi); builds both
-     kernels from the checkout into build/ and prints the build times and
-     what ptxas says of each CUDA kernel;
+  1. device: the card's name and power limit (nvidia-smi); builds every
+     kernel from the checkout into build/ (one nvcc per CUDA source, all
+     started together) and prints the build times and what ptxas says of
+     each CUDA kernel (registers, spills);
   2. kernels: each kernel against its plain PyTorch twin at the main path's
      shapes, in bf16 and fp32 (TF32 off), with the max error against a
      stated bound, the errors of planted faults that the bound must reject,
-     and both times (CUDA events, after warm-up);
-  3. slice parity: the tiny edit of tests/test_torch_edit.py (with 64^2
-     inputs, which need no PIL to resize; 2 samples, 4 UniPC steps, CFG 9)
-     with the same random weights and noise, in fp32 on the GPU (kernels)
-     against fp32 on the CPU (plain twins), and in bf16 on the GPU against
-     the fp32 CPU edit, at most twice as far from it as the bf16 CPU edit;
-  4. full width: SD1.5 UNet + two ControlNets (zero convs drawn nonzero) +
-     VAE + CLIP-L at published widths, random weights from a seed, bf16:
-     one warm-up and three timed 512^2 edits at the reference UI's default
-     point (2 samples, 30 UniPC steps, CFG 9); outputs must be finite
-     (2, 512, 512, 3) uint8 and both kernels' launch counters must grow
-     during the timed requests.
+     and both times (CUDA events, after warm-up): flash attention at the
+     UNet's, the VAE's and SAM's shapes (global and windowed encoder
+     layers), GroupNorm+SiLU, SAM's two-way transformer at the AMG's (256
+     prompts, 6 tokens) and the click predictor's (1 prompt, 21 tokens)
+     shapes, and SAM's upscale + hypernetwork at 256 prompts;
+  3. parity: the tiny edit of tests/test_torch_edit.py (with 64^2 inputs,
+     which need no PIL to resize; 2 samples, 4 UniPC steps, CFG 9) with the
+     same random weights and noise, in fp32 on the GPU (kernels) against
+     fp32 on the CPU (plain twins), and in bf16 on the GPU against the fp32
+     CPU edit, at most twice as far from it as the bf16 CPU edit; then the
+     same for a small SAM with the published decoder widths (so the decoder
+     kernels launch): a 4x4-point AMG with the quality filters open and one
+     click;
+  4. full width, edit only: SD1.5 UNet + two ControlNets (zero convs drawn
+     nonzero) + VAE + CLIP-L at published widths, random weights from a
+     seed, bf16: one warm-up and two timed 512^2 edits with a supplied
+     condition map at the reference UI's default point (2 samples, 30
+     UniPC steps, CFG 9);
+  5. the main path: SAM ViT-H (random bf16 weights) and the same bundle in
+     ``EditAnythingEditor``; one warm-up and three timed
+     ``process(condition_image=None)`` requests (SAM at 1024^2, the AMG,
+     the ID map, the 512^2 edit), each with its SAM-phase seconds; the SAM
+     phase split once into encoder, decode batches, selection/NMS and ID
+     map; one AMG with the filters open (every candidate valid, NMS at its
+     worst) and one click; outputs must be finite (2, 512, 512, 3) uint8
+     and every kernel's launch counter must grow during the timed
+     requests.
 The last two lines are the kernels' JSON summary and the result line.
 Nothing here imports jax or the JAX package (editanything_tpu); the run
 checks that no module of either was loaded.
@@ -45,20 +61,31 @@ FLASH_SOURCE = "editanything_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "editanything_tpu/core/flash_attention.py:64"
 GN_SOURCE = "editanything_tpu_torch/core/kernels.py"
 GN_REPLACES = "editanything_tpu/core/kernels.py:37"
+TWOWAY_SOURCE = "editanything_tpu_torch/csrc/sam_twoway.cu"
+TWOWAY_REPLACES = "editanything_tpu/core/kernels.py:347"
+UPSCALE_SOURCE = "editanything_tpu_torch/csrc/sam_upscale.cu"
+UPSCALE_REPLACES = "editanything_tpu/core/kernels.py:209"
+CUDA_LIBRARIES = ("flash_attention", "sam_twoway", "sam_upscale")
 
-# (label, B, H, N, M, Dqk, Dv): UNet/ControlNet attention at 512^2 with
-# 2 samples under CFG (B = 4), per resolution level; the VAE decoder's
-# single-head mid attention (B = 2)
+# (label, B, H, N, M, Dqk, Dv, scale): UNet/ControlNet attention at 512^2
+# with 2 samples under CFG (B = 4), per resolution level; the VAE decoder's
+# single-head mid attention (B = 2); SAM ViT-H's encoder at 1024^2 with the
+# rel-pos bias folded into q/k (scale 1): a global layer and the 25 14x14
+# windows of a windowed layer, whose 108 q/k columns the model pads to 112
+# (16-byte rows), also unpadded for comparison (None: 1/sqrt(Dqk))
 ATTN_SHAPES = [
-    ("unet 64x64 self", 4, 8, 4096, 4096, 40, 40),
-    ("unet 64x64 cross", 4, 8, 4096, 77, 40, 40),
-    ("unet 32x32 self", 4, 8, 1024, 1024, 80, 80),
-    ("unet 32x32 cross", 4, 8, 1024, 77, 80, 80),
-    ("unet 16x16 self", 4, 8, 256, 256, 160, 160),
-    ("unet 16x16 cross", 4, 8, 256, 77, 160, 160),
-    ("unet 8x8 self", 4, 8, 64, 64, 160, 160),
-    ("unet 8x8 cross", 4, 8, 64, 77, 160, 160),
-    ("vae mid 64x64", 2, 1, 4096, 4096, 512, 512),
+    ("unet 64x64 self", 4, 8, 4096, 4096, 40, 40, None),
+    ("unet 64x64 cross", 4, 8, 4096, 77, 40, 40, None),
+    ("unet 32x32 self", 4, 8, 1024, 1024, 80, 80, None),
+    ("unet 32x32 cross", 4, 8, 1024, 77, 80, 80, None),
+    ("unet 16x16 self", 4, 8, 256, 256, 160, 160, None),
+    ("unet 16x16 cross", 4, 8, 256, 77, 160, 160, None),
+    ("unet 8x8 self", 4, 8, 64, 64, 160, 160, None),
+    ("unet 8x8 cross", 4, 8, 64, 77, 160, 160, None),
+    ("vae mid 64x64", 2, 1, 4096, 4096, 512, 512, None),
+    ("sam global 64x64", 1, 16, 4096, 4096, 208, 80, 1.0),
+    ("sam window 14x14", 25, 16, 196, 196, 112, 80, 1.0),
+    ("sam window 14x14 unpadded", 25, 16, 196, 196, 108, 80, 1.0),
 ]
 # (label, NCHW shape, eps, SiLU)
 GN_SHAPES = [
@@ -85,7 +112,43 @@ ATTN_BF16_REL_BOUND = 2.0 ** -6
 GN_BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 6.25e-2}
 KEY_TILE = 64          # keys per tile in csrc/flash_attention.cu (kBlockM)
 HEADLINE = {"flash_attention": "unet 64x64 self",
-            "group_norm_silu": "vae decoder 512x512x256"}
+            "group_norm_silu": "vae decoder 512x512x256",
+            "sam_twoway": "amg batch", "sam_upscale_hyper": "amg batch"}
+# SAM decoder kernels: (label, prompts, tokens) for the two-way transformer
+# (the AMG's batch of 256 grid points with 5 + 1 tokens; the click
+# predictor's 1 prompt with 5 + 16 tokens) and prompts for the upscale
+TWOWAY_SHAPES = [("amg batch", 256, 6), ("click", 1, 21)]
+UPSCALE_SHAPES = [("amg batch", 256)]
+# bounds of the SAM decoder kernels against their twins:
+#  fp32 1e-4: exact fp32 products summed in other orders (outputs ~1-10);
+#  two-way bf16, both of: max abs error 2^-5 * max|twin's output| (4-8 bf16
+#    ulps of the largest output) and relative RMS error (||got - want|| /
+#    ||want||, the larger over the two outputs) 5e-3. Both sides round the
+#    same intermediates to bf16 at the same points (projections,
+#    probabilities, per 64-row tile for token->image attention, keys between
+#    layers), so they differ where a sum taken in another order (the tensor
+#    cores' accumulation) flips a rounding: single ulps, spread thin. The
+#    RMS bound is what rejects the logits x1.05 fault, whose largest change
+#    is about one ulp of the largest output. The decoder's attention q/k
+#    projections are drawn at twice the default range (SHARPEN): at the
+#    default, attention over 4096 random keys is so flat that x1.05 moves
+#    the outputs less than bf16 itself does (relative RMS 2.9e-3 against
+#    6.5e-3 for bf16 against fp32, CPU twin); at 2x, 1.5e-2 against 7.4e-3;
+#  upscale bf16 2^-6 * max|twin's output|: one rounding of y and z each and
+#    of the output, as the twin; two ulps of the largest output.
+SAM_F32_BOUND = 1e-4
+TWOWAY_BF16_REL_BOUND = 2.0 ** -5
+TWOWAY_BF16_RMS_BOUND = 5e-3
+SHARPEN = 2.0
+UPSCALE_BF16_REL_BOUND = 2.0 ** -6
+# a small SAM with the published decoder widths, so that the decoder
+# kernels launch: 128^2 input, 8x8 embedding, a 2-block 64-wide encoder
+SMALL_SAM = dict(img_size=128, patch_size=16, embed_dim=64, depth=2,
+                 num_heads=2, global_attn_indexes=(1,), window_size=4)
+# its fp32 parity bound, CUDA (kernels) vs CPU (twins), on candidate logits
+# and IoUs of magnitude ~1-10: fp32 through the encoder and decoder summed
+# in other orders (TF32 off)
+SMALL_SAM_F32_TOL = 1e-3
 # tiny fp32 CUDA-vs-CPU edit: the bounds of the JAX-vs-port test
 # (test_torch_edit)
 TINY_LATENT_TOL = 1e-3
@@ -95,10 +158,16 @@ TINY_IMAGE_LEVELS = 2
 # rounding alone moves the tiny edit's latents by ~1 and its images by ~12
 # levels, so the bound is stated against that distance, measured in the run.
 TINY_BF16_RATIO = 2
+FULL_WIDTH_REQUESTS = 2     # edit-only requests (phase 4)
+MAIN_PATH_REQUESTS = 3      # SAM + edit requests (phase 5)
 
 
 def max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
+
+
+def rel_rms(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
 
 
 def attention_bound(dtype, want) -> float:
@@ -107,7 +176,7 @@ def attention_bound(dtype, want) -> float:
     return ATTN_F32_BOUND
 
 
-def attention_faults(q, k, v, want) -> dict:
+def attention_faults(q, k, v, want, scale) -> dict:
     """Max errors against `want` of two planted faults, made with the plain
     twin: the last key tile dropped (the last half of the keys when one tile
     holds them all; at M = 77 that is the ragged tail) and the logits
@@ -116,7 +185,7 @@ def attention_faults(q, k, v, want) -> dict:
         flash_attention_reference as plain
     m = k.shape[2]
     keep = (m - 1) // KEY_TILE * KEY_TILE if m > KEY_TILE else m // 2
-    scale = q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     return {"last key tile dropped": max_err(
                 plain(q, k[:, :, :keep], v[:, :, :keep], scale=scale), want),
             "logits x1.05": max_err(plain(q, k, v, scale=1.05 * scale), want)}
@@ -166,15 +235,19 @@ def phase_device():
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     t0 = time.perf_counter()
+    build.build_cuda_libraries(CUDA_LIBRARIES)
     flash_attention.build()
     kernels.build()
-    print(f"[build] both kernels ready in {time.perf_counter() - t0:.1f} s "
-          f"(build dir {os.path.relpath(build.BUILD_DIR, REPO)})")
-    info = build.BUILD_LOG["flash_attention"]
-    print(f"[build] nvcc csrc/flash_attention.cu: {info['seconds']:.1f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[build]   {line.strip()}")
+    kernels.build_sam()
+    print(f"[build] every kernel ready in {time.perf_counter() - t0:.1f} s "
+          f"(build dir {os.path.relpath(build.BUILD_DIR, REPO)}; one nvcc per "
+          f"CUDA source, in parallel)")
+    for name in CUDA_LIBRARIES:
+        info = build.BUILD_LOG[name]
+        print(f"[build] nvcc csrc/{name}.cu: {info['seconds']:.1f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build]   {line.strip()}")
     return smi
 
 
@@ -185,26 +258,29 @@ def phase_kernels():
     headline = {}
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-        for label, b, h, n, m, dqk, dv in ATTN_SHAPES:
+        for label, b, h, n, m, dqk, dv, scale in ATTN_SHAPES:
             q = torch.randn(b, h, n, dqk, generator=g, device="cuda").to(dtype)
             k = torch.randn(b, h, m, dqk, generator=g, device="cuda").to(dtype)
             v = torch.randn(b, h, m, dv, generator=g, device="cuda").to(dtype)
-            got = FA.flash_attention(q, k, v)
-            want = FA.flash_attention_reference(q, k, v)
+            got = FA.flash_attention(q, k, v, scale=scale)
+            want = FA.flash_attention_reference(q, k, v, scale=scale)
             torch.cuda.synchronize()
             err = max_err(got, want)
             bound = attention_bound(dtype, want)
-            faults = attention_faults(q, k, v, want)
+            faults = attention_faults(q, k, v, want, scale)
             reps = 10 if dtype == torch.bfloat16 else 3
-            ms = cuda_ms(lambda: FA.flash_attention(q, k, v), reps)
-            plain = cuda_ms(lambda: FA.flash_attention_reference(q, k, v), reps)
+            ms = cuda_ms(lambda: FA.flash_attention(q, k, v, scale=scale), reps)
+            plain = cuda_ms(lambda: FA.flash_attention_reference(
+                q, k, v, scale=scale), reps)
             print(f"[kernel] flash_attention {tag} {label} "
-                  f"{(b, h, n, m, dqk, dv)}: max_abs_err {err:.3e} <= "
+                  f"{(b, h, n, m, dqk, dv)} scale={scale}: max_abs_err {err:.3e} <= "
                   f"{bound:.3e} (max|out| {want.float().abs().max().item():.3e}); "
                   f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
             what = f"flash_attention {tag} {label}"
             check_faults(faults, bound, what)
             check(err <= bound, f"{what}: {err} > {bound}")
+            if dtype == torch.bfloat16 and label.startswith("sam"):
+                headline[f"flash_attention {label}"] = (err, ms, plain, label)
             if dtype == torch.bfloat16 and label == HEADLINE["flash_attention"]:
                 headline["flash_attention"] = (err, ms, plain, label)
             del q, k, v, got, want
@@ -234,6 +310,142 @@ def phase_kernels():
             del x, got, want
     torch.cuda.empty_cache()
     return headline
+
+
+def sam_bound(dtype, want_max: float, rel: float) -> float:
+    return rel * want_max if dtype == torch.bfloat16 else SAM_F32_BOUND
+
+
+def sharpen_attention(transformer, factor: float = SHARPEN):
+    """Scale the q and k projections of every attention of a two-way
+    transformer (random weights) in place, so that its attention is not
+    near-uniform."""
+    with torch.no_grad():
+        for mod in transformer.modules():
+            if hasattr(mod, "q_proj"):
+                mod.q_proj.weight.mul_(factor)
+                mod.k_proj.weight.mul_(factor)
+    return transformer
+
+
+def twoway_errors(got, want):
+    """(max abs error, relative RMS error), each the larger over the
+    (queries, keys) outputs."""
+    return (max(max_err(g, w) for g, w in zip(got, want)),
+            max(rel_rms(g, w) for g, w in zip(got, want)))
+
+
+def twoway_faults(packed, src, pe, tokens, want) -> dict:
+    """twoway_errors against the twin's (queries, keys) of three planted
+    faults, made with the plain twin: layer 0's self-attention with a
+    residual instead of the replacement; the pad tokens (zeros up to the
+    Pallas kernel's multiple of 8) attended as if they were tokens; the
+    logits of every token<->image attention x1.05 (their q projections
+    scaled)."""
+    from editanything_tpu_torch.core import kernels as K
+    faults = {"layer 0 residual": twoway_errors(K.sam_twoway_reference(
+        packed, src, pe, tokens, first_layer_replaces=False), want)}
+    b, t, d = tokens.shape
+    padded = torch.cat([tokens, tokens.new_zeros(b, -(-t // 8) * 8 - t, d)], 1)
+    q, k = K.sam_twoway_reference(packed, src, pe, padded)
+    faults["pad tokens unmasked"] = twoway_errors((q[:, :t], k), want)
+    scaled = packed.clone()
+    for name in packed.mats:
+        if name.endswith("_to_image.q_proj") or name.endswith("_to_token.q_proj"):
+            scaled.mat(name).mul_(1.05)
+            scaled.vec(name + ".bias").mul_(1.05)
+    faults["cross logits x1.05"] = twoway_errors(K.sam_twoway_reference(
+        scaled, src, pe, tokens), want)
+    return faults
+
+
+def upscale_faults(src, hyper, args, want) -> dict:
+    """Max errors against `want` of two planted faults, made with the plain
+    twin: the taps of both transposed convs flipped (JAX conv_transpose's
+    convention, PARITY.md) and the LayerNorm2d variance 5% off."""
+    from editanything_tpu_torch.core import kernels as K
+    w1, b1, lnw, lnb, w2, b2 = args
+    return {
+        "taps flipped": max_err(K.sam_upscale_hyper_reference(
+            src, hyper, w1.flip(2, 3), b1, lnw, lnb, w2.flip(2, 3), b2), want),
+        "variance x1.05": max_err(K.sam_upscale_hyper_reference(
+            src, hyper, w1, b1, lnw / 1.05 ** 0.5, lnb, w2, b2), want)}
+
+
+def phase_sam_kernels(headline: dict):
+    """SAM's decoder kernels against their twins at the main path's shapes
+    (random decoder weights at the published widths, random inputs)."""
+    from editanything_tpu_torch.core import kernels as K
+    from editanything_tpu_torch.models.sam import SAMConfig
+    from editanything_tpu_torch.pipelines.bundle import random_sam
+    g = torch.Generator("cuda").manual_seed(5)
+    m = 4096                                   # ViT-H's 64x64 embedding
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        reps = 5 if dtype == torch.bfloat16 else 1
+        dec = random_sam(SAMConfig(**SMALL_SAM), device="cuda", dtype=dtype,
+                         generator=g).mask_decoder
+        packed = K.pack_twoway(sharpen_attention(dec.transformer))
+        src = torch.randn(1, m, 256, generator=g, device="cuda").to(dtype)
+        pe = torch.randn(m, 256, generator=g, device="cuda")
+        for label, b, t in TWOWAY_SHAPES:
+            tokens = torch.randn(b, t, 256, generator=g, device="cuda")
+            run = lambda: K.sam_twoway(packed, src, pe, tokens)
+            plain = lambda: K.sam_twoway_reference(packed, src, pe, tokens)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err, rms = twoway_errors(got, want)
+            top = max(x.float().abs().max().item() for x in want)
+            bound = sam_bound(dtype, top, TWOWAY_BF16_REL_BOUND)
+            rms_bound = (TWOWAY_BF16_RMS_BOUND if dtype == torch.bfloat16
+                         else float("inf"))
+            faults = twoway_faults(packed, src, pe, tokens, want)
+            ms = cuda_ms(run, reps, warmup=1)
+            plain_ms = cuda_ms(plain, reps, warmup=1)
+            print(f"[kernel] sam_twoway {tag} {label} (B={b}, T={t}, M={m}): "
+                  f"max_abs_err {err:.3e} <= {bound:.3e} (max|out| {top:.3e}), "
+                  f"rel_rms {rms:.3e} <= {rms_bound:.3e}; kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms")
+            what = f"sam_twoway {tag} {label}"
+            print("[kernel]   planted faults (max abs / rel rms): " + ", ".join(
+                f"{name} {e:.3e} / {r:.3e}" for name, (e, r) in faults.items()))
+            for name, (e, r) in faults.items():
+                check(e > bound or r > rms_bound,
+                      f"{what}: the bounds would pass a planted fault ({name}: "
+                      f"{e:.3e} / {r:.3e})")
+            check(err <= bound and rms <= rms_bound,
+                  f"{what}: {err} > {bound} or {rms} > {rms_bound}")
+            if dtype == torch.bfloat16 and label == HEADLINE["sam_twoway"]:
+                headline["sam_twoway"] = (err, ms, plain_ms,
+                                          f"{label} B={b} T={t}")
+            del got, want, tokens
+        up = dec.output_upscaling
+        args = (up[0].weight, up[0].bias, up[1].weight, up[1].bias,
+                up[3].weight, up[3].bias)
+        for label, b in UPSCALE_SHAPES:
+            keys = torch.randn(b, m, 256, generator=g, device="cuda").to(dtype)
+            hyper = torch.randn(b, 4, 32, generator=g, device="cuda").to(dtype)
+            run = lambda: K.sam_upscale_hyper(keys, hyper, *args)
+            plain = lambda: K.sam_upscale_hyper_reference(keys, hyper, *args)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            top = want.float().abs().max().item()
+            bound = sam_bound(dtype, top, UPSCALE_BF16_REL_BOUND)
+            faults = upscale_faults(keys, hyper, args, want)
+            ms = cuda_ms(run, reps, warmup=1)
+            plain_ms = cuda_ms(plain, reps, warmup=1)
+            print(f"[kernel] sam_upscale_hyper {tag} {label} (B={b}, 64x64 -> "
+                  f"256x256): max_abs_err {err:.3e} <= {bound:.3e} (max|out| "
+                  f"{top:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            what = f"sam_upscale_hyper {tag} {label}"
+            check_faults(faults, bound, what)
+            check(err <= bound, f"{what}: {err} > {bound}")
+            if dtype == torch.bfloat16 and label == HEADLINE["sam_upscale_hyper"]:
+                headline["sam_upscale_hyper"] = (err, ms, plain_ms, f"{label} B={b}")
+            del got, want, keys
+        del dec, packed, src
+        torch.cuda.empty_cache()
 
 
 def _checker_image(h, w):
@@ -300,6 +512,73 @@ def phase_tiny_parity():
           f"tiny bf16 images: {img_k} > {TINY_BF16_RATIO} x {img_p} levels")
 
 
+def phase_sam_parity():
+    """A small SAM with the published decoder widths (random weights, seed
+    2) on a 128^2 image: the 4x4-point AMG with the filters open and one
+    click, in fp32 on the GPU (kernels) against the CPU (plain twins), and
+    in bf16 on the GPU at most twice as far from the fp32 CPU run as the
+    bf16 CPU run is."""
+    from editanything_tpu_torch.core import kernels as K
+    from editanything_tpu_torch.models.sam import SAMConfig, preprocess
+    from editanything_tpu_torch.perception import amg as A
+    from editanything_tpu_torch.perception.predictor import SamPredictor
+    from editanything_tpu_torch.pipelines.bundle import random_sam
+    cfg = SAMConfig(**SMALL_SAM)
+    amg_cfg = A.AMGConfig(points_per_side=4, points_per_batch=16,
+                          pred_iou_thresh=-10.0, stability_score_thresh=-1.0,
+                          max_masks=16)
+    img = np.random.default_rng(9).integers(0, 256, (128, 128, 3), np.uint8)
+
+    def run(device, dtype):
+        sam = random_sam(cfg, generator=torch.Generator().manual_seed(2))
+        sam = sam.to(device=device, dtype=dtype).eval()
+        with torch.inference_mode():
+            x = preprocess(torch.from_numpy(img).to(device), cfg).to(dtype)
+            emb = sam.image_encoder(x)
+            pts = torch.from_numpy(A._grid_points(amg_cfg, 128, 128)).to(device)
+            logits, iou = A.decode_candidates(sam, amg_cfg, emb, pts)
+            keep = A.select_candidates(logits, iou, amg_cfg)["valid"]
+        pred = SamPredictor(sam, cfg)
+        pred.set_image(img)
+        mask, _, low = pred.predict(point_coords=[[40, 70]], point_labels=[1],
+                                    multimask_output=False)
+        return (logits.float().cpu().numpy(), iou.float().cpu().numpy(),
+                keep.cpu().numpy(), low, mask)
+
+    before = (K.sam_twoway.launches, K.sam_upscale_hyper.launches)
+    runs = {"cpu fp32": ("cpu", torch.float32), "gpu fp32": ("cuda", torch.float32),
+            "cpu bf16": ("cpu", torch.bfloat16), "gpu bf16": ("cuda", torch.bfloat16)}
+    outs = {name: run(*key) for name, key in runs.items()}
+    check(K.sam_twoway.launches > before[0]
+          and K.sam_upscale_hyper.launches > before[1],
+          "the small SAM did not launch the decoder kernels")
+
+    def dist(a, b):   # candidate logits, IoUs, click logits: max abs diff
+        return tuple(float(np.abs(outs[a][i] - outs[b][i]).max())
+                     for i in (0, 1, 3))
+    lg, io, cl = dist("gpu fp32", "cpu fp32")
+    scale = float(np.abs(outs["cpu fp32"][0]).max())
+    same_keep = bool((outs["cpu fp32"][2] == outs["gpu fp32"][2]).all())
+    print(f"[parity] small SAM fp32, CUDA (kernels) vs CPU (plain twins): "
+          f"candidate logits {lg:.3e}, IoUs {io:.3e}, click logits {cl:.3e} "
+          f"<= {SMALL_SAM_F32_TOL:g} (|logits| <= {scale:.2f}); keep flags "
+          f"{'equal' if same_keep else 'DIFFER'}")
+    check(max(lg, io, cl) <= SMALL_SAM_F32_TOL, "small SAM fp32 parity")
+    check(same_keep, "small SAM keep flags differ")
+    near = np.abs(outs["cpu fp32"][3]) <= SMALL_SAM_F32_TOL
+    differ = outs["cpu fp32"][4] != outs["gpu fp32"][4]
+    check(not (differ & ~near).any(), "click masks differ away from the threshold")
+    k = dist("gpu bf16", "cpu fp32")
+    c = dist("cpu bf16", "cpu fp32")
+    print(f"[parity] small SAM bf16 against the fp32 CPU run: CUDA (kernels) "
+          f"logits {k[0]:.3e}, IoUs {k[1]:.3e}, click {k[2]:.3e}; CPU (plain "
+          f"twins) {c[0]:.3e}, {c[1]:.3e}, {c[2]:.3e}; bound "
+          f"{TINY_BF16_RATIO:g}x the CPU's")
+    for name, a, b in zip(("logits", "IoUs", "click logits"), k, c):
+        check(a <= TINY_BF16_RATIO * b,
+              f"small SAM bf16 {name}: {a} > {TINY_BF16_RATIO} x {b}")
+
+
 def full_width_request() -> dict:
     """EditPipeline arguments of a 512^2 request at the reference UI's
     default point (2 samples, 30 UniPC steps, CFG 9)."""
@@ -346,17 +625,135 @@ def phase_full_width():
     torch.cuda.reset_peak_memory_stats()
     FA.flash_attention.launches = 0
     K.group_norm_silu.launches = 0
-    times = [one(101 + r) for r in range(3)]
+    times = [one(101 + r) for r in range(FULL_WIDTH_REQUESTS)]
     launches = {"flash_attention": FA.flash_attention.launches,
                 "group_norm_silu": K.group_norm_silu.launches}
     peak = torch.cuda.max_memory_allocated()
     for r, s in enumerate(times):
-        print(f"[full] request {r}: {s:.3f} s (512^2, 2 samples, 30 steps, CFG 9)")
+        print(f"[full] edit-only request {r}: {s:.3f} s (512^2, supplied "
+              f"condition map, 2 samples, 30 steps, CFG 9)")
     print(f"[full] mean {sum(times) / len(times):.3f} s/request; peak memory "
           f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
-    print(f"[full] kernel launches in the 3 timed requests: {launches}")
+    print(f"[full] kernel launches in the {len(times)} timed requests: {launches}")
+    for name, count in launches.items():
+        check(count > 0, f"{name} was not launched on the edit path")
+    return bundle
+
+
+def _synced(fn, *args, **kwargs):
+    """(result, seconds) of fn on the host clock, the device synchronised."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def phase_main_path(bundle) -> dict:
+    """SAM ViT-H + the SD1.5 bundle in the editor: the main path as a user
+    calls it, ``process`` with no condition map."""
+    from editanything_tpu_torch.core import flash_attention as FA
+    from editanything_tpu_torch.core import kernels as K
+    from editanything_tpu_torch.models import sam as SAM
+    from editanything_tpu_torch.perception import amg as A
+    from editanything_tpu_torch.pipelines.bundle import random_sam
+    from editanything_tpu_torch.pipelines.editor import EditAnythingEditor
+
+    t0 = time.perf_counter()
+    cfg = SAM.sam_vit_h()
+    sam = random_sam(cfg, device="cuda", dtype=torch.bfloat16,
+                     generator=torch.Generator("cuda").manual_seed(7)).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in sam.parameters())
+    print(f"[main] SAM ViT-H (1280 wide, 32 deep, global 7/15/23/31), bf16, "
+          f"random weights (seed 7): {n_params / 1e6:.1f} M parameters, built "
+          f"in {time.perf_counter() - t0:.1f} s")
+    amg_cfg = A.AMGConfig()
+    editor = EditAnythingEditor(bundle, sam=(cfg, sam), amg_config=amg_cfg)
+    sam_seconds = []
+    get_sam_control = editor.get_sam_control
+
+    def timed_sam_control(image):
+        out, seconds = _synced(get_sam_control, image)
+        sam_seconds.append(seconds)
+        return out
+    editor.get_sam_control = timed_sam_control
+    image = _checker_image(512, 512)
+    request = dict(image=image, mask=_square_mask(512, 128, 384),
+                   prompt="a red cat sitting on a sofa", a_prompt="best quality",
+                   n_prompt="blurry, low quality", num_samples=2,
+                   image_resolution=512, detect_resolution=512, ddim_steps=30,
+                   scale=9.0, control_scale=0.5)
+
+    def one(seed):
+        (_, results, (cond, _), _), seconds = _synced(
+            editor.process, **request, seed=seed,
+            generator=torch.Generator("cuda").manual_seed(seed))
+        out = np.stack(results)
+        check(out.shape == (2, 512, 512, 3) and out.dtype == np.uint8,
+              f"process returned {out.shape} {out.dtype}")
+        check(editor.pipe.last_nonfinite == 0,
+              f"{editor.pipe.last_nonfinite} non-finite values before the uint8 cast")
+        check(cond.shape == (512, 512, 3) and cond.dtype == np.uint8,
+              f"SAM condition map {cond.shape} {cond.dtype}")
+        return seconds
+
+    print(f"[main] warm-up request: {one(200):.3f} s (SAM phase "
+          f"{sam_seconds[-1]:.3f} s)")
+    counters = (FA.flash_attention, K.group_norm_silu, K.sam_twoway,
+                K.sam_upscale_hyper)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    sam_seconds.clear()
+    times = [one(201 + r) for r in range(MAIN_PATH_REQUESTS)]
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated()
+    for r, (total, sam_s) in enumerate(zip(times, sam_seconds)):
+        print(f"[main] request {r}: {total:.3f} s, of which SAM phase "
+              f"{sam_s:.3f} s (512^2 image -> SAM 1024^2 -> 32x32-point AMG "
+              f"-> ID map -> 512^2 edit, 2 samples, 30 steps, CFG 9)")
+    print(f"[main] mean {sum(times) / len(times):.3f} s/request, SAM phase "
+          f"{sum(sam_seconds) / len(sam_seconds):.3f} s; peak memory "
+          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    print(f"[main] kernel launches in the {len(times)} timed requests: {launches}")
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the main path")
+
+    # the SAM phase once more, split (each part synchronised)
+    with torch.inference_mode():
+        x, (nh, nw) = SAM.prepare_image(image, cfg, "cuda")
+        emb, t_enc = _synced(sam.image_encoder, x.to(torch.bfloat16))
+        pts = torch.from_numpy(A._grid_points(amg_cfg, nh, nw)).cuda()
+        (logits, iou), t_dec = _synced(A.decode_candidates, sam, amg_cfg, emb, pts)
+        sel, t_sel = _synced(A.select_candidates, logits, iou, amg_cfg)
+        _, t_map = _synced(A.encode_id_map, sel["logits"], sel["valid"],
+                           out_hw=(512, 512))
+        stab, areas, _ = A._mask_stats(logits, amg_cfg.mask_threshold,
+                                       amg_cfg.stability_score_offset)
+        passing = int(((iou > amg_cfg.pred_iou_thresh)
+                       & (stab > amg_cfg.stability_score_thresh)
+                       & (areas > 0)).sum())
+        kept = int(sel["valid"].sum())
+        print(f"[main] SAM phase split: encoder {t_enc:.4f} s, decode "
+              f"({amg_cfg.num_points // amg_cfg.points_per_batch} batches of "
+              f"{amg_cfg.points_per_batch} points) {t_dec:.4f} s, selection/NMS "
+              f"{t_sel:.4f} s, ID map {t_map:.4f} s; {passing} of "
+              f"{logits.shape[0]} candidates pass the filters, {kept} masks kept")
+        open_cfg = A.AMGConfig(pred_iou_thresh=-1e9, stability_score_thresh=-1.0)
+        _, open_gen = A.build_amg(cfg, open_cfg)
+        out, t_open = _synced(open_gen, sam, emb, pts)
+        stab_all = int((areas > 0).sum())
+        print(f"[main] AMG with the filters open: {t_open:.4f} s (decode + "
+              f"selection; {stab_all} of {logits.shape[0]} candidates valid, "
+              f"{int(out['valid'].sum())} masks kept)")
+    editor.clear_clicks()
+    (overlay, mask), t_click = _synced(editor.process_image_click, image, 256,
+                                       256, True, detect_resolution=512)
+    check(mask.shape == (512, 512) and overlay.shape == (512, 512, 3),
+          f"click returned {mask.shape} / {overlay.shape}")
+    print(f"[main] process_image_click (512^2, encode + one click): "
+          f"{t_click:.4f} s; mask covers {float((mask > 0).mean()):.3f}")
     return launches
 
 
@@ -371,15 +768,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     headline = phase_kernels()
+    phase_sam_kernels(headline)
     phase_tiny_parity()
-    launches = phase_full_width()
+    phase_sam_parity()
+    bundle = phase_full_width()
+    launches = phase_main_path(bundle)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "editanything_tpu"))
     check(not foreign, f"the port loaded {foreign}")
     rows = []
     for name, route, source, replaces in (
             ("flash_attention", "cuda", FLASH_SOURCE, FLASH_REPLACES),
-            ("group_norm_silu", "triton", GN_SOURCE, GN_REPLACES)):
+            ("group_norm_silu", "triton", GN_SOURCE, GN_REPLACES),
+            ("sam_twoway", "cuda", TWOWAY_SOURCE, TWOWAY_REPLACES),
+            ("sam_upscale_hyper", "cuda", UPSCALE_SOURCE, UPSCALE_REPLACES)):
         err, ms, plain, label = headline[name]
         rows.append({"name": name, "route": route, "source": source,
                      "replaces": replaces, "launches": launches[name],

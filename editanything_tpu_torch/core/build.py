@@ -4,8 +4,8 @@ Everything goes into ``build/`` at the repository root (git-ignored):
 
 - CUDA C++ (``csrc/*.cu``): ``nvcc`` for ``sm_90a`` into a shared library
   with a plain C interface, loaded with ctypes. The file name carries a hash
-  of the source, so an edited source is rebuilt and a stale library is never
-  loaded.
+  of the source and of the shared headers (``csrc/*.cuh``), so an edited
+  source is rebuilt and a stale library is never loaded.
 - Triton: its compile cache is pointed at ``build/triton``.
 
 Nothing is downloaded, and nothing outside the checkout is written.
@@ -45,25 +45,46 @@ def _nvcc() -> str:
     return found
 
 
+def _library_path(name: str) -> Path:
+    """``build/lib<name>_<hash>.so`` for ``csrc/<name>.cu``."""
+    src = CSRC_DIR / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_cuda_libraries(names) -> None:
+    """Compile ``csrc/<name>.cu`` for every name not built yet, one nvcc
+    process per source, all started together."""
+    procs = {}
+    for name in names:
+        out = _library_path(name)
+        if out.exists():
+            BUILD_LOG.setdefault(name, {"seconds": 0.0, "log": "(cached)"})
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build_cuda_library(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` into ``build/lib<name>_<hash>.so``."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
-    if out.exists():
-        BUILD_LOG.setdefault(name, {"seconds": 0.0, "log": "(cached)"})
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_LOG[name] = {"seconds": seconds, "log": proc.stdout + proc.stderr}
-    return out
+    build_cuda_libraries([name])
+    return _library_path(name)
 
 
 @functools.cache

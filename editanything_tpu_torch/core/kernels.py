@@ -1,6 +1,10 @@
-"""GroupNorm(+SiLU): the Triton kernel for Hopper and its plain PyTorch twin.
+"""The port's kernels beside ``editanything_tpu/core/kernels.py``, each with
+its plain PyTorch twin: GroupNorm(+SiLU) in Triton (below), and SAM's mask
+decoder kernels in CUDA C++ (``sam_twoway``, ``sam_upscale_hyper``; their
+sources, with the note on what bounds them, are ``csrc/sam_twoway.cu`` and
+``csrc/sam_upscale.cu``).
 
-Replaces the Pallas TPU kernel ``editanything_tpu/core/kernels.py``
+GroupNorm(+SiLU) replaces the Pallas TPU kernel ``editanything_tpu/core/kernels.py``
 (``_gn_silu_kernel``, :37; ``_gn_silu_pallas``, :121; ``group_norm_silu``,
 :825): GroupNorm with fp32 statistics per (image, group), then the
 per-channel affine, then an optional SiLU, in one output write.
@@ -26,9 +30,14 @@ counterpart. Triton is imported, and the kernels are built, at first use.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import functools
+import math
+from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 BLOCK = 4096          # elements per chunk (power of two)
 NUM_WARPS = 8
@@ -164,3 +173,358 @@ def group_norm_silu(x, weight, bias, *, num_groups: int = 32,
 
 
 group_norm_silu.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# SAM mask decoder: the two-way transformer (kernel D) and the upscale +
+# hypernetwork products (kernel C), CUDA C++ through ctypes
+# ---------------------------------------------------------------------------
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TWOWAY_WIDTH = 256          # SAM's decoder widths, the same in every variant
+TWOWAY_HEADS = 8
+TWOWAY_MAX_TOKENS = 24      # 5 output tokens + 16 point slots + 2 box corners
+TWOWAY_MAX_LAYERS = 4       # csrc/sam_twoway.cu kMaxLayers
+TWOWAY_ROW_TILE = 64        # image rows per block of the bf16 row kernel
+
+
+def _twoway_names(n_layers: int):
+    """The matrices (weights, (out, in)) and vectors (biases, LayerNorm
+    affines) of the packed two-way transformer, in the order
+    csrc/sam_twoway.cu indexes them: per layer 14 matrices and 22 vectors,
+    then the final attention's 4 matrices and 6 vectors."""
+    def attn(a):
+        return [f"{a}.{x}_proj" for x in ("q", "k", "v", "out")]
+    mats, vecs = [], []
+    for l in range(n_layers):
+        p = f"layers.{l}."
+        layer = (attn(p + "self_attn") + attn(p + "cross_attn_token_to_image")
+                 + [p + "mlp.lin1", p + "mlp.lin2"]
+                 + attn(p + "cross_attn_image_to_token"))
+        mats += layer
+        vecs += [m + ".bias" for m in layer]
+        vecs += [f"{p}norm{j}.{w}" for j in range(1, 5)
+                 for w in ("weight", "bias")]
+    final = attn("final_attn_token_to_image")
+    mats += final
+    vecs += [m + ".bias" for m in final]
+    vecs += ["norm_final_attn.weight", "norm_final_attn.bias"]
+    return mats, vecs
+
+
+@dataclasses.dataclass
+class TwoWayPacked:
+    """The two-way transformer's parameters in two flat buffers: ``w``
+    (storage dtype) holds every matrix, ``v`` (fp32) every bias and
+    LayerNorm affine, rounded to the storage dtype first, as the Pallas
+    kernel casts them (editanything_tpu/core/kernels.py:381-389)."""
+    w: torch.Tensor
+    v: torch.Tensor
+    mats: Dict[str, Tuple[int, Tuple[int, int]]]
+    vecs: Dict[str, Tuple[int, int]]
+    n_layers: int
+    heads: int
+
+    def mat(self, name: str) -> torch.Tensor:
+        off, shape = self.mats[name]
+        return self.w[off:off + shape[0] * shape[1]].view(shape)
+
+    def vec(self, name: str) -> torch.Tensor:
+        off, n = self.vecs[name]
+        return self.v[off:off + n]
+
+    def clone(self) -> "TwoWayPacked":
+        return dataclasses.replace(self, w=self.w.clone(), v=self.v.clone())
+
+
+def pack_twoway(transformer, *, heads: int = TWOWAY_HEADS,
+                dtype=None) -> TwoWayPacked:
+    """Pack a ``TwoWayTransformer`` module (official SAM names) for
+    ``sam_twoway``; done once per image and kept out of the AMG's batch loop,
+    as the JAX package hoists it (amg.py:203-204). `dtype`: the storage
+    dtype (default: the module's)."""
+    sd = transformer.state_dict()
+    n_layers = len(transformer.layers)
+    mat_names, vec_names = _twoway_names(n_layers)
+    dt = dtype or sd[mat_names[0] + ".weight"].dtype
+    mats, vecs, ws, vs = {}, {}, [], []
+    off = 0
+    for name in mat_names:
+        w = sd[name + ".weight"]
+        mats[name] = (off, tuple(w.shape))
+        ws.append(w.to(dt).reshape(-1))
+        off += w.numel()
+    off = 0
+    for name in vec_names:
+        v = sd[name]
+        vecs[name] = (off, v.numel())
+        vs.append(v.to(dt).float().reshape(-1))
+        off += v.numel()
+    return TwoWayPacked(w=torch.cat(ws), v=torch.cat(vs), mats=mats,
+                        vecs=vecs, n_layers=n_layers, heads=heads)
+
+
+def sam_twoway_reference(packed: TwoWayPacked, src1, pe, tokens, *,
+                         first_layer_replaces: bool = True):
+    """Plain twin of kernel D: SAM's two-way transformer for B prompts that
+    share one image input.
+
+    src1 (1, M, d) in the storage dtype; pe (M, d) fp32; tokens (B, T, d)
+    fp32 (also the query positional term). Returns (queries (B, T, d),
+    keys (B, M, d)) in the storage dtype. The cast points are the Pallas
+    kernel's (editanything_tpu/core/kernels.py:347-469): every projection
+    takes storage-dtype inputs with fp32 sums, attention probabilities are
+    rounded to the storage dtype before the product with v, LayerNorms are
+    fp32, the tokens stay fp32 and the keys are stored in the storage dtype
+    between layers. Token->image attention runs over tiles of
+    ``TWOWAY_ROW_TILE`` image rows as the kernel splits it: per tile the
+    exponentials are taken against the tile's maximum and rounded before the
+    product with v, then the tiles merge (flash-decoding). In fp32 the
+    rounding is exact and the result is plain softmax attention.
+    ``first_layer_replaces=False`` gives layer 0's self-attention a residual
+    instead (a fault the chip checks must reject)."""
+    dt = src1.dtype
+    b = tokens.shape[0]
+    keys = src1.expand(b, -1, -1)
+    pe = pe.float()
+    tok0 = tokens.float()
+
+    def lin(x, name):
+        return (torch.matmul(x.to(dt).float(), packed.mat(name).float().t())
+                + packed.vec(name + ".bias"))
+
+    def ln(x, name):
+        mu = x.mean(-1, keepdim=True)
+        var = (x - mu).square().mean(-1, keepdim=True)
+        return ((x - mu) * torch.rsqrt(var + 1e-5) * packed.vec(name + ".weight")
+                + packed.vec(name + ".bias"))
+
+    def attn(name, qx, kx, vx, tiled=False):
+        q, k, v = (lin(x, f"{name}.{p}_proj")
+                   for x, p in ((qx, "q"), (kx, "k"), (vx, "v")))
+        n, m, inner = q.shape[1], k.shape[1], q.shape[2]
+        hd = inner // packed.heads
+
+        def heads(x, rows):
+            return x.to(dt).float().view(b, rows, packed.heads, hd).transpose(1, 2)
+        s = torch.matmul(heads(q, n), heads(k, m).transpose(-1, -2)) * hd ** -0.5
+        if not tiled:
+            p = torch.softmax(s, dim=-1).to(dt).float()
+            o = torch.matmul(p, heads(v, m))
+        else:
+            tile = TWOWAY_ROW_TILE if m % TWOWAY_ROW_TILE == 0 else m
+            st = s.unflatten(-1, (m // tile, tile))
+            mt = st.amax(-1, keepdim=True)
+            e = torch.exp(st - mt)
+            vt = heads(v, m).unflatten(2, (m // tile, tile))
+            acc = torch.einsum("bhnjt,bhjtd->bhnjd", e.to(dt).float(), vt)
+            w = torch.exp(mt - mt.amax(-2, keepdim=True))   # (b, h, n, tiles, 1)
+            o = (acc * w).sum(-2) / (e.sum(-1, keepdim=True) * w).sum(-2)
+        o = o.transpose(1, 2).reshape(b, n, inner)
+        return lin(o, f"{name}.out_proj")
+
+    q = tok0
+    for l in range(packed.n_layers):
+        p = f"layers.{l}."
+        if l == 0:
+            a = attn(p + "self_attn", q, q, q)
+            q = a if first_layer_replaces else q + a
+        else:
+            qpe = q + tok0
+            q = q + attn(p + "self_attn", qpe, qpe, q)
+        q = ln(q, p + "norm1")
+        kpe = keys.float() + pe
+        q = ln(q + attn(p + "cross_attn_token_to_image", q + tok0, kpe, keys,
+                        tiled=True), p + "norm2")
+        h = torch.relu(lin(q, p + "mlp.lin1"))
+        q = ln(q + lin(h, p + "mlp.lin2"), p + "norm3")
+        keys = ln(keys.float() + attn(p + "cross_attn_image_to_token",
+                                      kpe, q + tok0, q), p + "norm4").to(dt)
+    q = q + attn("final_attn_token_to_image", q + tok0, keys.float() + pe,
+                 keys, tiled=True)
+    return ln(q, "norm_final_attn").to(dt), keys
+
+
+@functools.cache
+def _sam_library(name: str) -> ctypes.CDLL:
+    from editanything_tpu_torch.core.build import load_cuda_library
+    lib = load_cuda_library(name)
+    ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    if name == "sam_twoway":
+        # src, src batch stride, pe, tokens, w, v, w offsets, n, v offsets, n,
+        # n_layers, keys_out, q_out, q_state, tokkv, tq, partials, B, M, T,
+        # dtype, stream
+        lib.ea_sam_twoway.argtypes = ([ptr, ll, ptr, ptr, ptr, ptr, ptr, i32,
+                                       ptr, i32, i32] + [ptr] * 6
+                                      + [i32] * 4 + [ptr])
+        lib.ea_sam_twoway.restype = i32
+    else:
+        # src, w1, b1, ln_w, ln_b, w2, b2, hyper, out, B, M, e, eps, dtype,
+        # stream
+        lib.ea_sam_upscale.argtypes = ([ptr] * 9 + [i32] * 3
+                                       + [ctypes.c_float, i32, ptr])
+        lib.ea_sam_upscale.restype = i32
+    lib.ea_cuda_error_string.argtypes = [i32]
+    lib.ea_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_sam() -> None:
+    """Compile and load both SAM kernel libraries (first use does this)."""
+    _sam_library("sam_twoway")
+    _sam_library("sam_upscale")
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.ea_cuda_error_string(err).decode())
+
+
+def _offsets(table: dict) -> ctypes.Array:
+    offs = [off for off, _ in table.values()]
+    return (ctypes.c_longlong * len(offs))(*offs)
+
+
+def sam_twoway(packed: TwoWayPacked, src1, pe, tokens):
+    """SAM's two-way transformer for B prompts sharing one image input
+    (the AMG's grid and the click predictor: the no-mask dense prompt).
+
+    src1 (1, M, 256) in the storage dtype, pe (M, 256) fp32, tokens
+    (B, T, 256) fp32 with T <= 24. Returns (queries (B, T, 256), keys
+    (B, M, 256)) in the storage dtype. CUDA tensors launch kernel D (seven
+    launches per call, counted once in ``sam_twoway.launches``); CPU tensors
+    take the plain twin."""
+    if src1.device.type == "cpu":
+        return sam_twoway_reference(packed, src1, pe, tokens)
+    if src1.device.type != "cuda":
+        raise RuntimeError(f"sam_twoway: no kernel for {src1.device}")
+    b, t, d = tokens.shape
+    m = src1.shape[1]
+    dt = src1.dtype
+    if dt not in _DTYPE_CODES or packed.w.dtype != dt:
+        raise TypeError(f"sam_twoway takes fp32 or bf16 keys with weights of "
+                        f"the same dtype, got {dt} and {packed.w.dtype}")
+    if (src1.shape != (1, m, TWOWAY_WIDTH) or pe.shape != (m, d)
+            or d != TWOWAY_WIDTH or pe.dtype != torch.float32
+            or tokens.dtype != torch.float32):
+        raise ValueError(f"sam_twoway takes src1 (1, M, 256), fp32 pe (M, 256) "
+                         f"and fp32 tokens (B, T, 256); got "
+                         f"{tuple(src1.shape)}, {tuple(pe.shape)} {pe.dtype}, "
+                         f"{tuple(tokens.shape)} {tokens.dtype}")
+    if not 1 <= t <= TWOWAY_MAX_TOKENS or m % TWOWAY_ROW_TILE:
+        raise ValueError(f"sam_twoway takes 1..{TWOWAY_MAX_TOKENS} tokens and "
+                         f"a multiple of {TWOWAY_ROW_TILE} image rows; got "
+                         f"T={t}, M={m}")
+    if (packed.heads != TWOWAY_HEADS or packed.n_layers > TWOWAY_MAX_LAYERS
+            or packed.mats["layers.0.mlp.lin1"][1] != (2048, TWOWAY_WIDTH)):
+        raise ValueError("sam_twoway's kernel takes SAM's decoder widths "
+                         "(256 wide, 8 heads, MLP 2048, <= 4 layers)")
+    devs = {x.device for x in (src1, pe, tokens, packed.w, packed.v)}
+    if len(devs) != 1:
+        raise ValueError(f"sam_twoway: tensors on several devices {devs}")
+    src1, pe, tokens = src1.contiguous(), pe.contiguous(), tokens.contiguous()
+    rows = TWOWAY_ROW_TILE if dt == torch.bfloat16 else TWOWAY_ROW_TILE // 2
+    dev = src1.device
+    keys = torch.empty((b, m, d), dtype=dt, device=dev)
+    q_out = torch.empty((b, t, d), dtype=dt, device=dev)
+    q_state = torch.empty((b, t, d), dtype=torch.float32, device=dev)
+    tokkv = torch.empty((b, 2, t, d // 2), dtype=dt, device=dev)
+    tq = torch.empty((b, t, d // 2), dtype=dt, device=dev)
+    part = torch.empty((b, m // rows, t, TWOWAY_HEADS, 18),
+                       dtype=torch.float32, device=dev)
+    lib = _sam_library("sam_twoway")
+    w_off, v_off = _offsets(packed.mats), _offsets(packed.vecs)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ea_sam_twoway(
+            src1.data_ptr(), 0, pe.data_ptr(), tokens.data_ptr(),
+            packed.w.data_ptr(), packed.v.data_ptr(), w_off, len(w_off),
+            v_off, len(v_off), packed.n_layers, keys.data_ptr(),
+            q_out.data_ptr(), q_state.data_ptr(), tokkv.data_ptr(),
+            tq.data_ptr(), part.data_ptr(), b, m, t, _DTYPE_CODES[dt], stream)
+    _raise_on(err, lib, "sam_twoway")
+    sam_twoway.launches += 1
+    return q_out, keys
+
+
+sam_twoway.launches = 0
+
+
+def layer_norm_2d(x, weight, bias, eps):
+    """LayerNorm2d over the channels of NCHW, fp32 statistics (the twin's
+    and ``models/sam.py``'s)."""
+    xf = x.float()
+    mu = xf.mean(1, keepdim=True)
+    var = (xf - mu).square().mean(1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float()[:, None, None] + bias.float()[:, None, None]).to(x.dtype)
+
+
+def sam_upscale_hyper_reference(src, hyper, w1, b1, ln_w, ln_b, w2, b2, *,
+                                eps: float = 1e-6):
+    """Plain twin of kernel C: ConvTranspose 2x2/s2 -> LayerNorm2d -> exact
+    GELU -> ConvTranspose 2x2/s2 -> GELU, then the products with the
+    hypernetwork vectors. src (B, e*e, c), hyper (B, nm, c/8); the weights
+    are torch ConvTranspose2d's (I, O, 2, 2). Returns (B, nm, 4e, 4e) in
+    src's dtype. Products of storage-dtype values with fp32 sums, as the
+    Pallas kernel (editanything_tpu/core/kernels.py:209-250)."""
+    dt = src.dtype
+    b, npix, c = src.shape
+    e = math.isqrt(npix)
+    x = src.float().transpose(1, 2).reshape(b, c, e, e)
+    y = F.conv_transpose2d(x, w1.to(dt).float(), b1.to(dt).float(), stride=2)
+    y = F.gelu(layer_norm_2d(y, ln_w.to(dt), ln_b.to(dt), eps)).to(dt).float()
+    z = F.conv_transpose2d(y, w2.to(dt).float(), b2.to(dt).float(), stride=2)
+    z = F.gelu(z).to(dt).float()
+    return torch.einsum("bnc,bchw->bnhw", hyper.to(dt).float(), z).to(dt)
+
+
+def sam_upscale_hyper(src, hyper, w1, b1, ln_w, ln_b, w2, b2, *,
+                      eps: float = 1e-6):
+    """The mask decoder's output path (models/sam.py): upscale the (B, e*e,
+    256) keys 4x and take the products with the (B, 4, 32) hypernetwork
+    vectors -> (B, 4, 4e, 4e) mask logits in src's dtype.
+
+    CUDA tensors launch kernel C (counted in ``sam_upscale_hyper.launches``)
+    and take c = 256, nm = 4 only, as every SAM variant has; CPU tensors take
+    the plain twin."""
+    if src.device.type == "cpu":
+        return sam_upscale_hyper_reference(src, hyper, w1, b1, ln_w, ln_b,
+                                           w2, b2, eps=eps)
+    if src.device.type != "cuda":
+        raise RuntimeError(f"sam_upscale_hyper: no kernel for {src.device}")
+    dt = src.dtype
+    b, npix, c = src.shape
+    e = math.isqrt(npix)
+    if dt not in _DTYPE_CODES:
+        raise TypeError(f"sam_upscale_hyper takes fp32 or bf16, got {dt}")
+    if (c != 256 or e * e != npix or hyper.shape != (b, 4, c // 8)
+            or w1.shape != (c, c // 4, 2, 2) or w2.shape != (c // 4, c // 8, 2, 2)):
+        raise ValueError(f"sam_upscale_hyper's kernel takes src (B, e*e, 256) "
+                         f"and hyper (B, 4, 32); got {tuple(src.shape)}, "
+                         f"{tuple(hyper.shape)}")
+    if hyper.device != src.device or w1.device != src.device:
+        raise ValueError("sam_upscale_hyper: tensors on several devices")
+    # (tap, out, in) matrices: w1p[di*2+dj, o, i] = w1[i, o, di, dj];
+    # w2p[(di2*2+dj2)*32 + o, i] = w2[i, o, di2, dj2]
+    w1p = w1.to(dt).permute(2, 3, 1, 0).reshape(4, c // 4, c).contiguous()
+    w2p = w2.to(dt).permute(2, 3, 1, 0).reshape(c // 2, c // 4).contiguous()
+    vecs = [v.to(dt).float().contiguous() for v in (b1, ln_w, ln_b)]
+    b2p = b2.to(dt).float().repeat(4).contiguous()
+    src, hyper = src.contiguous(), hyper.to(dt).contiguous()
+    out = torch.empty((b, 4, 4 * e, 4 * e), dtype=dt, device=src.device)
+    lib = _sam_library("sam_upscale")
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = lib.ea_sam_upscale(
+            src.data_ptr(), w1p.data_ptr(), vecs[0].data_ptr(),
+            vecs[1].data_ptr(), vecs[2].data_ptr(), w2p.data_ptr(),
+            b2p.data_ptr(), hyper.data_ptr(), out.data_ptr(), b, npix, e,
+            float(eps), _DTYPE_CODES[dt], stream)
+    _raise_on(err, lib, "sam_upscale_hyper")
+    sam_upscale_hyper.launches += 1
+    return out
+
+
+sam_upscale_hyper.launches = 0

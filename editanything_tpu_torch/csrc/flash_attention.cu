@@ -37,18 +37,16 @@
 // ctypes (no PyTorch headers): ea_flash_attention returns the launch's
 // cudaGetLastError(), 0 on success.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
+
+using namespace ea;
 
 constexpr int kRows = 16;          // query rows per warp
 constexpr int kWarps = 4;          // warps per block
 constexpr int kBlockN = kRows * kWarps;
 constexpr int kBlockM = 64;        // keys per tile
-constexpr int kMaxSmem = 232448;   // 227 KB, the most a block may use
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -66,30 +64,14 @@ struct Params {
   float scale;
 };
 
-__host__ __device__ inline size_t align128(size_t x) {
-  return (x + 127) & ~static_cast<size_t>(127);
-}
-
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16, everything but the K/V/Q tiles in registers
+// bf16: mma.sync m16n8k16 (common.cuh), everything but the K/V/Q tiles in
+// registers
 // ---------------------------------------------------------------------------
-
-__device__ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ inline uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ inline uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // rows x cols tile from global (row stride src_ld) into shared (row stride
@@ -341,10 +323,6 @@ __host__ __device__ inline F32Layout f32_layout(int bn, int bm, int dqk_pad,
 
 __device__ inline float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ inline float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 

@@ -20,6 +20,7 @@ from editanything_tpu_torch.core import layers as L
 from editanything_tpu_torch.models import config as C
 from editanything_tpu_torch.models.clip_text import CLIPTextModel
 from editanything_tpu_torch.models.controlnet import ControlNetModel
+from editanything_tpu_torch.models.sam import LayerNorm2d, Sam, SAMConfig
 from editanything_tpu_torch.models.unet import UNet2DConditionModel
 from editanything_tpu_torch.models.vae import AutoencoderKL
 from editanything_tpu_torch.text.tokenizer import tiny_tokenizer
@@ -146,3 +147,44 @@ def module_from_tree(cls, cfg, tree: Mapping) -> nn.Module:
     module.load_state_dict(state_dict_from_tree(tree), strict=True)
     return module
 
+
+@torch.no_grad()
+def random_sam(cfg: SAMConfig, *, device="cpu", dtype=torch.float32,
+               generator: Optional[torch.Generator] = None) -> Sam:
+    """A SAM with random weights, built on `device` in `dtype`, every
+    parameter drawn nonzero from `generator` (on `device`; default: seed 0
+    there): zero rel-pos tables or biases would hide gather-order and bias
+    bugs (tests/test_sam_parity.py:39-43). Linear and conv weights are
+    uniform in +-1/sqrt(fan_in) (a transposed conv's fan-in is its input
+    channels), their biases uniform in the same range, norm scales
+    1 + U(-0.1, 0.1) and shifts U(-0.1, 0.1), embeddings and the Fourier
+    matrix N(0, 1), ``pos_embed`` N(0, 0.02) and the rel-pos tables
+    N(0, 0.05)."""
+    device = torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device).manual_seed(0)
+    sam = _empty(Sam, cfg, device, dtype)
+
+    def uniform(t, bound):
+        t.uniform_(-bound, bound, generator=generator)
+    for m in sam.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
+            fan_in = (m.weight.shape[0] if isinstance(m, nn.ConvTranspose2d)
+                      else m.weight[0].numel())
+            uniform(m.weight, fan_in ** -0.5)
+            if m.bias is not None:
+                uniform(m.bias, fan_in ** -0.5)
+        elif isinstance(m, (nn.LayerNorm, LayerNorm2d)):
+            uniform(m.weight, 0.1)
+            m.weight.add_(1.0)
+            uniform(m.bias, 0.1)
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0, generator=generator)
+    enc = sam.image_encoder
+    enc.pos_embed.normal_(0.0, 0.02, generator=generator)
+    for blk in enc.blocks:
+        blk.attn.rel_pos_h.normal_(0.0, 0.05, generator=generator)
+        blk.attn.rel_pos_w.normal_(0.0, 0.05, generator=generator)
+    sam.prompt_encoder.pe_layer.positional_encoding_gaussian_matrix.normal_(
+        0.0, 1.0, generator=generator)
+    return sam

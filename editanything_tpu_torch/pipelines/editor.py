@@ -1,0 +1,188 @@
+"""EditAnythingEditor: SAM's automatic masks and click predictor in front
+of the dual-ControlNet inpaint edit.
+
+Counterpart of ``editanything_tpu/pipelines/editor.py`` for the main path:
+``process`` builds the SAM ID condition map when none is given
+(editor.py:358-360) and runs the edit; ``process_image_click`` is the
+click-to-segment entry point. Images in and out are numpy HWC uint8. The
+SAM resize is torch (``resize_uint8_bilinear``), so this path needs no PIL
+as long as ``resize_image`` has nothing to resize.
+
+Not ported yet; set to anything but its default, each raises
+``NotImplementedError`` naming its ROADMAP item: auto prompt and
+condition-model swap (Queue 1 item 12), scale maps (item 4), alpha mixing
+(item 5), tile refinement (item 10), reference-only arguments (item 9),
+``EA_SAVE_INPUTS`` capture (item 12), DDIM eta (item 3).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from editanything_tpu_torch.models import sam as SAM
+from editanything_tpu_torch.perception.amg import (AMGConfig, _grid_points,
+                                                   build_amg, encode_id_map)
+from editanything_tpu_torch.perception.predictor import SamPredictor
+from editanything_tpu_torch.pipelines.bundle import ModelBundle
+from editanything_tpu_torch.pipelines.edit import EditPipeline
+from editanything_tpu_torch.utils.image import (HWC3, resize_image,
+                                                resize_points)
+
+# process() arguments of the JAX editor that are not ported yet: their
+# defaults, and the ROADMAP item that ports each
+_NOT_PORTED = {
+    "enable_auto_prompt": (False, "Queue 1 item 12 (captioner)"),
+    "condition_model": (None, "Queue 1 item 12 (ControlNet hot-swap)"),
+    "eta": (0.0, "Queue 1 item 3 (DDIM eta)"),
+    "use_scale_map": (False, "Queue 1 item 4 (ControlNet scale maps)"),
+    "scale_map": (None, "Queue 1 item 4 (ControlNet scale maps)"),
+    "use_alpha_mixing": (False, "Queue 1 item 5 (mix inpainting)"),
+    "alpha_weight": (0.5, "Queue 1 item 5 (mix inpainting)"),
+    "enable_tile": (False, "Queue 1 item 10 (tile refinement)"),
+    "refine_image_resolution": (1024, "Queue 1 item 10 (tile refinement)"),
+    "refine_alignment_ratio": (0.95, "Queue 1 item 10 (tile refinement)"),
+    "ref_image": (None, "Queue 1 item 9 (reference-only control)"),
+    "ref_mask": (None, "Queue 1 item 9 (reference-only control)"),
+    "ref_prompt": (None, "Queue 1 item 9 (reference-only control)"),
+    "ref_auto_prompt": (False, "Queue 1 item 9 (reference-only control)"),
+    "ref_textinv": (False, "Queue 1 item 9 (reference-only control)"),
+    "ref_textinv_path": (None, "Queue 1 item 9 (reference-only control)"),
+    "reference_attn": (True, "Queue 1 item 9 (reference-only control)"),
+    "reference_adain": (False, "Queue 1 item 9 (reference-only control)"),
+    "attention_auto_weight": (1.0, "Queue 1 item 9 (reference-only control)"),
+    "gn_auto_weight": (1.0, "Queue 1 item 9 (reference-only control)"),
+    "style_fidelity": (0.5, "Queue 1 item 9 (reference-only control)"),
+    "ref_scale": (0.0, "Queue 1 item 9 (reference-only control)"),
+    "ref_sam_scale": (None, "Queue 1 item 9 (reference-only control)"),
+    "ref_inpaint_scale": (None, "Queue 1 item 9 (reference-only control)"),
+}
+
+
+def draw_click_overlay(image: np.ndarray, mask: np.ndarray,
+                       points: Sequence[Tuple[int, int, int]],
+                       radius: int = 5) -> np.ndarray:
+    """Green mask at 0.75 alpha and point discs (green foreground, red
+    background), the reference's overlay (editany_lora.py:581-601)."""
+    out = image.astype(np.float32).copy()
+    m = mask.astype(bool)
+    green = np.array([0.0, 255.0, 0.0], np.float32)
+    out[m] = 0.25 * out[m] + 0.75 * green
+    h, w = out.shape[:2]
+    yy, xx = np.mgrid[0:h, 0:w]
+    for (x, y, lab) in points:
+        disk = (xx - x) ** 2 + (yy - y) ** 2 <= radius ** 2
+        out[disk] = green if lab == 1 else np.array([255.0, 0.0, 0.0])
+    return out.clip(0, 255).astype(np.uint8)
+
+
+class EditAnythingEditor:
+    """``process``/``process_image_click`` over the port's pipelines."""
+
+    def __init__(self, bundle: ModelBundle, *,
+                 sam: Optional[Tuple[SAM.SAMConfig, SAM.Sam]] = None,
+                 amg_config: Optional[AMGConfig] = None,
+                 extra_inpaint: bool = True):
+        self.bundle = bundle
+        controls = (("sam", "inpaint") if extra_inpaint
+                    and "inpaint" in bundle.controlnets else ("sam",))
+        self.pipe = EditPipeline(bundle, controls=controls,
+                                 inpaint_mode="blend")
+        self.sam = sam
+        self.amg_cfg = amg_config or AMGConfig()
+        if sam is not None:
+            sam_cfg, sam_module = sam
+            self.sam_predictor = SamPredictor(sam_module, sam_cfg)
+            self._amg_encode, self._amg_generate = build_amg(sam_cfg,
+                                                             self.amg_cfg)
+        self.click_points: List[Tuple[int, int, int]] = []
+
+    # -- SAM auto condition ----------------------------------------------
+
+    def get_sam_control(self, image: np.ndarray) -> np.ndarray:
+        """Automatic masks of the whole image -> uint8 (H, W, 3) R/G ID
+        condition map (editany_lora.py:522-525 and show_anns :426-449)."""
+        if self.sam is None:
+            raise RuntimeError("no SAM weights in this editor")
+        sam_cfg, sam = self.sam
+        dev = self.sam_predictor.device
+        x, (nh, nw) = SAM.prepare_image(image, sam_cfg, dev)
+        emb = self._amg_encode(sam, x.to(sam.mask_decoder.iou_token.weight.dtype))
+        pts = torch.from_numpy(_grid_points(self.amg_cfg, nh, nw)).to(dev)
+        out = self._amg_generate(sam, emb, pts)
+        cond = encode_id_map(out["logits"], out["valid"],
+                             out_hw=image.shape[:2],
+                             mask_threshold=self.amg_cfg.mask_threshold)
+        return cond.cpu().numpy()
+
+    # -- interactive click segmentation ------------------------------------
+
+    def process_image_click(self, image: np.ndarray, x: int, y: int,
+                            is_foreground: bool = True,
+                            detect_resolution: int = 1024):
+        """Accumulate click points, predict the mask, return (overlay,
+        mask), editany_lora.py:545-607."""
+        self.click_points.append((x, y, 1 if is_foreground else 0))
+        img = resize_image(HWC3(image.astype(np.uint8)), detect_resolution)
+        pts = resize_points(self.click_points, image.shape, detect_resolution)
+        self.sam_predictor.set_image(img)
+        coords = np.array([[p[0], p[1]] for p in pts], np.float32)
+        labels = np.array([p[2] for p in pts], np.int64)
+        masks, _, _ = self.sam_predictor.predict(
+            point_coords=coords, point_labels=labels, multimask_output=False)
+        mask = masks[0]
+        overlay = draw_click_overlay(img, mask, pts)
+        return overlay, (mask.astype(np.uint8) * 255)
+
+    def clear_clicks(self):
+        self.click_points = []
+
+    # -- the main edit -----------------------------------------------------
+
+    def process(self, *, image: np.ndarray, mask: Optional[np.ndarray],
+                prompt: str = "", a_prompt: str = "", n_prompt: str = "",
+                condition_image: Optional[np.ndarray] = None,
+                enable_all_generate: bool = False,
+                num_samples: int = 1, image_resolution: int = 512,
+                detect_resolution: int = 1024,
+                ddim_steps: int = 30, scale: float = 9.0,
+                control_scale: float = 0.5, seed: int = 0,
+                sampler: str = "unipc", guess_mode: bool = False,
+                alignment_ratio: Optional[float] = None,
+                generator: Optional[torch.Generator] = None, noise=None,
+                **not_ported):
+        """Returns (results_tile, results, [condition_map, mask], prompt),
+        the reference's process() contract (editany_lora.py:609-938);
+        results_tile is empty (tile refinement is not ported). `noise` /
+        `generator`: the initial latents, as ``EditPipeline`` takes them."""
+        for name, value in not_ported.items():
+            if name not in _NOT_PORTED:
+                raise TypeError(f"process() got an unexpected argument {name!r}")
+            default, item = _NOT_PORTED[name]
+            if not (value is default or (isinstance(value, (bool, int, float))
+                                         and value == default)):
+                raise NotImplementedError(f"{name}={value!r}: not ported yet "
+                                          f"(ROADMAP {item})")
+        if os.environ.get("EA_SAVE_INPUTS") == "1":
+            raise NotImplementedError("EA_SAVE_INPUTS capture: not ported yet "
+                                      "(ROADMAP Queue 1 item 12)")
+        image = HWC3(np.asarray(image, np.uint8))
+        if condition_image is None:
+            condition_image = self.get_sam_control(
+                resize_image(image, detect_resolution))
+        positive = f"{prompt}, {a_prompt}" if a_prompt else prompt
+        if enable_all_generate or mask is None:
+            mask = np.full(image.shape[:2], 255, np.uint8)
+        results = self.pipe(
+            image=image, mask=mask, prompt=positive,
+            condition_image=condition_image, negative_prompt=n_prompt,
+            num_samples=num_samples, image_resolution=image_resolution,
+            num_steps=ddim_steps, guidance_scale=scale,
+            control_scale=control_scale, sampler=sampler,
+            alignment_ratio=alignment_ratio, guess_mode=guess_mode, seed=seed,
+            generator=generator, noise=noise)
+        return ([], [results[i] for i in range(len(results))],
+                [condition_image, mask], positive)

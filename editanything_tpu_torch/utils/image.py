@@ -5,9 +5,13 @@ PIL is imported only when ``resize_image`` really resizes, so a 512^2 edit
 runs where PIL is not installed. ``resize_nearest``/``resize_bilinear``
 reproduce ``jax.image.resize``: its "nearest" samples at half-pixel centres
 (torch's ``nearest-exact``), its "bilinear" antialiases when downscaling.
+``resize_uint8_bilinear`` stands in for PIL's BILINEAR resize of uint8
+images (within one level of it), so the SAM phase needs no PIL.
 """
 
 from __future__ import annotations
+
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,3 +64,30 @@ def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
         return x
     return F.interpolate(x, size=tuple(size), mode="bilinear",
                          align_corners=False, antialias=True)
+
+
+def resize_uint8_bilinear(img, size):
+    """uint8 (H, W, C) numpy array or tensor -> (h, w, C) of the same kind,
+    on the same device: antialiased bilinear with half-pixel centres, rounded
+    and clamped. It stands in for PIL's ``Image.resize(..., BILINEAR)``,
+    which the JAX package's SAM resize uses (editor.py:131-136,
+    predictor.py:64-71): at most one level apart from it. The same size
+    returns the input unchanged, as PIL does."""
+    if tuple(img.shape[:2]) == tuple(size):
+        return img
+    x = torch.as_tensor(img)
+    y = F.interpolate(x.permute(2, 0, 1)[None].float(), size=tuple(size),
+                      mode="bilinear", align_corners=False, antialias=True)
+    y = y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8)
+    return y.numpy() if isinstance(img, np.ndarray) else y
+
+
+def resize_points(clicked_points: Sequence[Tuple[int, int, int]],
+                  original_shape: Tuple[int, ...],
+                  resolution: int) -> List[Tuple[int, int, int]]:
+    """Scale (x, y, label) click coordinates with ``resize_image``'s
+    short-side resize (editanything_tpu/utils/image.py:55)."""
+    oh, ow = original_shape[0], original_shape[1]
+    scale = float(resolution) / min(float(oh), float(ow))
+    return [(int(round(x * scale)), int(round(y * scale)), lab)
+            for (x, y, lab) in clicked_points]

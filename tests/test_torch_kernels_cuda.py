@@ -1,4 +1,4 @@
-"""The port's two kernels against their plain PyTorch twins, on the GPU.
+"""The port's kernels against their plain PyTorch twins, on the GPU.
 
 Marked ``cuda``: they skip without an NVIDIA GPU (the CUDA and Triton
 kernels have no CPU mode). This file imports neither jax nor the JAX
@@ -13,7 +13,11 @@ Tolerances: fp32 1e-4 absolute (exact fp32 products, sums in other
 orders); bf16 attention 2^-6 of the twin's largest output, i.e. two bf16
 ulps of it (both sides keep fp32 sums and round the output once; P is
 rounded to bf16 unnormalised in the kernel and normalised in the twin);
-bf16 GroupNorm 6.25e-2, one bf16 ulp at outputs below 16.
+bf16 GroupNorm 6.25e-2, one bf16 ulp at outputs below 16. SAM's decoder
+kernels (two-way transformer, upscale + hypernetwork) at SAM's published
+decoder widths with small batches: fp32 1e-4 absolute (exact fp32 products
+summed in other orders; outputs of magnitude ~1-10); bf16 the bounds of
+chip_smoke.py, stated against the twin's largest output.
 """
 
 import numpy as np
@@ -22,6 +26,8 @@ import torch
 
 from editanything_tpu_torch.core import flash_attention as tfa
 from editanything_tpu_torch.core import kernels as tk
+from editanything_tpu_torch.models.sam import SAMConfig
+from editanything_tpu_torch.pipelines.bundle import random_sam
 
 # (n, m, dqk, dv, scale): those of tests/test_torch_kernels.py, plus a
 # depth that rules out 16-byte loads (36) and an output depth split into a
@@ -34,8 +40,17 @@ ATTN_CASES = [
     (64, 64, 512, 512, None),
     (70, 50, 36, 36, None),
     (80, 77, 176, 176, None),
+    (196, 196, 108, 80, 1.0),     # SAM's windowed encoder layers, unpadded
+    (196, 196, 112, 80, 1.0),     # and padded to 16-byte rows, as the model
 ]
 GN_CASES = [(1e-5, True), (1e-5, False), (1e-6, True), (1e-6, False)]
+SAM_F32_TOL = 1e-4
+TWOWAY_BF16_REL = 2.0 ** -5      # chip_smoke.py TWOWAY_BF16_REL_BOUND
+TWOWAY_BF16_RMS = 5e-3           # chip_smoke.py TWOWAY_BF16_RMS_BOUND
+UPSCALE_BF16_REL = 2.0 ** -6     # chip_smoke.py UPSCALE_BF16_REL_BOUND
+# a small SAM whose decoder has the published widths (256, 8 heads, MLP 2048)
+SMALL_SAM = SAMConfig(img_size=128, patch_size=16, embed_dim=64, depth=2,
+                      num_heads=2, global_attn_indexes=(1,), window_size=4)
 
 
 def _qkv(seed, b, h, n, m, dqk, dv):
@@ -115,3 +130,76 @@ def test_flash_attention_kernel_reads_head_strided_views(cuda_device):
     assert got.transpose(1, 2).is_contiguous()
     err, bound = _attention_err_and_bound(got, want)
     assert err <= bound
+
+
+def _sam_bound(got, want, rel):
+    err = (got.float() - want.float()).abs().max().item()
+    if want.dtype == torch.bfloat16:
+        return err, rel * want.float().abs().max().item()
+    return err, SAM_F32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_tokens", [6, 21])
+def test_sam_twoway_kernel_matches_plain(cuda_device, dtype, n_tokens):
+    g = torch.Generator(cuda_device).manual_seed(3)
+    sam = random_sam(SMALL_SAM, device=cuda_device, dtype=dtype, generator=g)
+    # q/k at twice the default range, as chip_smoke.py draws them
+    with torch.no_grad():
+        for mod in sam.mask_decoder.transformer.modules():
+            if hasattr(mod, "q_proj"):
+                mod.q_proj.weight.mul_(2.0)
+                mod.k_proj.weight.mul_(2.0)
+    packed = sam.mask_decoder.pack_twoway()
+    b, m = 3, 128
+    src = torch.randn(1, m, 256, generator=g, device=cuda_device).to(dtype)
+    pe = torch.randn(m, 256, generator=g, device=cuda_device)
+    tokens = torch.randn(b, n_tokens, 256, generator=g, device=cuda_device)
+    before = tk.sam_twoway.launches
+    q, k = tk.sam_twoway(packed, src, pe, tokens)
+    torch.cuda.synchronize()
+    assert tk.sam_twoway.launches == before + 1
+    want_q, want_k = tk.sam_twoway_reference(packed, src, pe, tokens)
+    for got, want in ((q, want_q), (k, want_k)):
+        assert got.shape == want.shape and got.dtype == dtype
+        err, bound = _sam_bound(got, want, TWOWAY_BF16_REL)
+        assert err <= bound
+        if dtype == torch.bfloat16:
+            rms = ((got.float() - want.float()).norm() / want.float().norm()).item()
+            assert rms <= TWOWAY_BF16_RMS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e", [8, 16])
+def test_sam_upscale_kernel_matches_plain(cuda_device, dtype, e):
+    g = torch.Generator(cuda_device).manual_seed(4)
+    sam = random_sam(SMALL_SAM, device=cuda_device, dtype=dtype, generator=g)
+    up = sam.mask_decoder.output_upscaling
+    b = 3
+    src = torch.randn(b, e * e, 256, generator=g, device=cuda_device).to(dtype)
+    hyper = torch.randn(b, 4, 32, generator=g, device=cuda_device).to(dtype)
+    args = (up[0].weight, up[0].bias, up[1].weight, up[1].bias, up[3].weight,
+            up[3].bias)
+    before = tk.sam_upscale_hyper.launches
+    got = tk.sam_upscale_hyper(src, hyper, *args)
+    torch.cuda.synchronize()
+    assert tk.sam_upscale_hyper.launches == before + 1
+    want = tk.sam_upscale_hyper_reference(src, hyper, *args)
+    assert got.shape == (b, 4, 4 * e, 4 * e) and got.dtype == dtype
+    err, bound = _sam_bound(got, want, UPSCALE_BF16_REL)
+    assert err <= bound
+
+
+@pytest.mark.cuda
+def test_sam_kernels_refuse_other_widths(cuda_device):
+    src = torch.zeros(1, 64, 128, device=cuda_device)
+    with pytest.raises(ValueError):
+        tk.sam_upscale_hyper(src, torch.zeros(1, 4, 16, device=cuda_device),
+                             torch.zeros(128, 32, 2, 2, device=cuda_device),
+                             torch.zeros(32, device=cuda_device),
+                             torch.zeros(32, device=cuda_device),
+                             torch.zeros(32, device=cuda_device),
+                             torch.zeros(32, 16, 2, 2, device=cuda_device),
+                             torch.zeros(16, device=cuda_device))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of one full-width edit request of the PyTorch port goes.
 
-    python3 tools/profile_torch_edit.py      # from the repository root; one CUDA GPU
+    python3 tools/profile_torch_edit.py        # from the repository root; one CUDA GPU
+    python3 tools/profile_torch_edit.py --sam  # the SAM phase of the main path
 
 The configuration is chip_smoke.py's phase 4: SD1.5 UNet + two ControlNets +
 VAE + CLIP-L at published widths, random bf16 weights from seed 0, a 512^2
@@ -17,6 +18,11 @@ through ``EditPipeline``. After one warm-up request it runs:
      of kernel intervals) and its idle share of the traced span. Tracing
      slows the host, so that idle share is an upper bound; the line after
      it sets the busy time against the untraced requests.
+With ``--sam`` it profiles the SAM phase instead, as chip_smoke.py's phase
+5 runs it: SAM ViT-H with random bf16 weights (seed 7) in
+``EditAnythingEditor.get_sam_control`` on a 512^2 image (encoder at 1024^2,
+the 32x32-point AMG in 4 batches of 256, selection and NMS, the ID map):
+five untraced calls, then one call under torch.profiler, as step 3 above.
 Prints the card's name and power limit first and a JSON summary last.
 Imports no jax.
 """
@@ -38,6 +44,9 @@ UNTRACED_REQUESTS = 5
 # (category, substrings of the kernel name), first match wins
 CATEGORIES = [
     ("flash attention (csrc/flash_attention.cu)", ("flash_bf16", "flash_f32")),
+    ("SAM two-way, row tiles (csrc/sam_twoway.cu)", ("twoway_rows",)),
+    ("SAM two-way, tokens (csrc/sam_twoway.cu)", ("twoway_tokens",)),
+    ("SAM upscale + hypernetwork (csrc/sam_upscale.cu)", ("upscale_kernel",)),
     ("GroupNorm+SiLU (Triton)", ("_gn_stats", "_gn_apply")),
     ("cuDNN layout NCHW->NHWC", ("nchwToNhwc",)),
     ("cuDNN layout NHWC->NCHW", ("nhwcToNchw",)),
@@ -101,13 +110,15 @@ def component_seconds(pipe, request, bundle, seed):
     return wall, dict(totals), dict(calls)
 
 
-def traced_request(pipe, request, seed):
+def traced(fn):
+    """fn() once under torch.profiler: (seconds, kernels, busy us, span us,
+    device time and count by category, by kernel name)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(**request, generator=torch.Generator("cuda").manual_seed(seed))
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -122,6 +133,64 @@ def traced_request(pipe, request, seed):
     span = (max(t for _, t in intervals) - min(s for s, _ in intervals)
             if intervals else 0.0)
     return wall, len(kernels), _busy_us(intervals), span, by_cat, by_name
+
+
+def print_trace(wall, n, busy, span, by_cat, by_name, untraced):
+    print(f"[profile] traced run {wall:.3f} s: {n} device kernels, busy "
+          f"{busy / 1e3:.1f} ms, idle share of the traced span "
+          f"{1 - busy / span if span else float('nan'):.3f}")
+    print(f"[profile] busy time against the fastest untraced run: "
+          f"{busy / 1e6:.3f} s of {min(untraced):.3f} s "
+          f"(device idle about {1 - busy / 1e6 / min(untraced):.3f} of it)")
+    print("[profile] device time by category (ms, share of busy, kernels):")
+    for label, (us, k) in sorted(by_cat.items(), key=lambda kv: -kv[1][0]):
+        print(f"[profile]   {label}: {us / 1e3:.2f} ms, "
+              f"{us / busy:.3f}, {k}")
+    print("[profile] top kernels (ms, count):")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    for name, (us, k) in top:
+        print(f"[profile]   {us / 1e3:.2f} ms, {k}: {name[:110]}")
+
+
+def profile_sam_phase(bundle, smi) -> int:
+    from editanything_tpu_torch.core import flash_attention as FA
+    from editanything_tpu_torch.core import kernels as K
+    from editanything_tpu_torch.models import sam as SAM
+    from editanything_tpu_torch.perception.amg import AMGConfig
+    from editanything_tpu_torch.pipelines.bundle import random_sam
+    from editanything_tpu_torch.pipelines.editor import EditAnythingEditor
+    import chip_smoke
+
+    cfg = SAM.sam_vit_h()
+    sam = random_sam(cfg, device="cuda", dtype=torch.bfloat16,
+                     generator=torch.Generator("cuda").manual_seed(7)).eval()
+    editor = EditAnythingEditor(bundle, sam=(cfg, sam), amg_config=AMGConfig())
+    image = chip_smoke._checker_image(512, 512)
+
+    def one():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        editor.get_sam_control(image)
+        return time.perf_counter() - t
+
+    print(f"[profile] warm-up SAM phase: {one():.3f} s")
+    counters = (FA.flash_attention, K.sam_twoway, K.sam_upscale_hyper)
+    for fn in counters:
+        fn.launches = 0
+    untraced = [one() for _ in range(UNTRACED_REQUESTS)]
+    launches = {fn.__name__: fn.launches // UNTRACED_REQUESTS for fn in counters}
+    print("[profile] untraced SAM phases (s): "
+          + " ".join(f"{s:.4f}" for s in untraced)
+          + f"; kernel wrapper launches per call {launches}")
+    trace = traced(lambda: editor.get_sam_control(image))
+    print_trace(*trace, untraced)
+    wall, n, busy, _, by_cat, _ = trace
+    print(json.dumps({
+        "device": smi, "phase": "sam", "untraced_s": untraced,
+        "launches": launches, "traced_s": wall, "kernels": n,
+        "busy_ms": busy / 1e3,
+        "categories_ms": {k: v[0] / 1e3 for k, v in by_cat.items()}}))
+    return 0
 
 
 def main() -> int:
@@ -143,6 +212,8 @@ def main() -> int:
     print(smi)
     bundle = random_bundle(tiny=False, dtype=torch.bfloat16, device="cuda",
                            generator=torch.Generator("cuda").manual_seed(0))
+    if sys.argv[1:] == ["--sam"]:
+        return profile_sam_phase(bundle, smi)
     pipe = EditPipeline(bundle, controls=("sam", "inpaint"),
                         inpaint_mode="blend")
     request = chip_smoke.full_width_request()
@@ -173,21 +244,10 @@ def main() -> int:
     print(f"[profile]   everything else (host prep, hints, sampler, "
           f"blend, uint8): {rest:.3f} s")
 
-    twall, n, busy, span, by_cat, by_name = traced_request(pipe, request, 120)
-    print(f"[profile] traced request {twall:.3f} s: {n} device kernels, busy "
-          f"{busy / 1e3:.1f} ms, idle share of the traced span "
-          f"{1 - busy / span if span else float('nan'):.3f}")
-    print(f"[profile] busy time against the fastest untraced request: "
-          f"{busy / 1e6:.3f} s of {min(untraced):.3f} s "
-          f"(device idle about {1 - busy / 1e6 / min(untraced):.3f} of it)")
-    print("[profile] device time by category (ms, share of busy, kernels):")
-    for label, (us, k) in sorted(by_cat.items(), key=lambda kv: -kv[1][0]):
-        print(f"[profile]   {label}: {us / 1e3:.2f} ms, "
-              f"{us / busy:.3f}, {k}")
-    print("[profile] top kernels (ms, count):")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
-    for name, (us, k) in top:
-        print(f"[profile]   {us / 1e3:.2f} ms, {k}: {name[:110]}")
+    trace = traced(lambda: pipe(
+        **request, generator=torch.Generator("cuda").manual_seed(120)))
+    print_trace(*trace, untraced)
+    twall, n, busy, _, by_cat, _ = trace
     print(json.dumps({
         "device": smi, "untraced_s": untraced, "launches": launches,
         "components_s": seconds, "component_calls": calls,
