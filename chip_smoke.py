@@ -7,8 +7,8 @@ Phases, each printed on lines of its own; any failure raises and exits
 non-zero, and nothing is caught:
   1. device: the card's name and power limit (nvidia-smi); builds every
      kernel from the checkout into build/ (one nvcc per CUDA source, all
-     started together) and prints the build times and what ptxas says of
-     each CUDA kernel (registers, spills);
+     four started together) and prints the build times and what ptxas says
+     of each CUDA kernel (registers, spills);
   2. kernels: each kernel against its plain PyTorch twin at the main path's
      shapes, in bf16 and fp32 (TF32 off), with the max error against a
      stated bound, the errors of planted faults that the bound must reject,
@@ -16,29 +16,34 @@ non-zero, and nothing is caught:
      UNet's, the VAE's and SAM's shapes (global and windowed encoder
      layers), GroupNorm+SiLU, SAM's two-way transformer at the AMG's (256
      prompts, 6 tokens) and the click predictor's (1 prompt, 21 tokens)
-     shapes, and SAM's upscale + hypernetwork at 256 prompts;
+     shapes, SAM's upscale + hypernetwork at 256 prompts, and the fused
+     resnet block at five UNet and VAE shapes, also timed against the
+     composed block (cuDNN convs + the GroupNorm kernel);
   3. parity: the tiny edit of tests/test_torch_edit.py (with 64^2 inputs,
      which need no PIL to resize; 2 samples, 4 UniPC steps, CFG 9) with the
      same random weights and noise, in fp32 on the GPU (kernels) against
      fp32 on the CPU (plain twins), and in bf16 on the GPU against the fp32
-     CPU edit, at most twice as far from it as the bf16 CPU edit; then the
-     same for a small SAM with the published decoder widths (so the decoder
-     kernels launch): a 4x4-point AMG with the quality filters open and one
-     click;
+     CPU edit, at most twice as far from it as the bf16 CPU edit; the same
+     with every resnet fused (EA_RESNET_FUSED=1), and for a tiny txt2img
+     with the switch on; then the same for a small SAM with the published
+     decoder widths (so the decoder kernels launch): a 4x4-point AMG with
+     the quality filters open and one click;
   4. full width, edit only: SD1.5 UNet + two ControlNets (zero convs drawn
      nonzero) + VAE + CLIP-L at published widths, random weights from a
-     seed, bf16: one warm-up and two timed 512^2 edits with a supplied
-     condition map at the reference UI's default point (2 samples, 30
-     UniPC steps, CFG 9);
+     seed, bf16: one denoise step (batch 4) with the resnets fused and
+     composed, each against an fp32 composed step; one warm-up and timed
+     512^2 edits with a supplied condition map at the reference UI's
+     default point (2 samples, 30 UniPC steps, CFG 9), the switch off and
+     on in turns; one txt2img request with the switch on;
   5. the main path: SAM ViT-H (random bf16 weights) and the same bundle in
      ``EditAnythingEditor``; one warm-up and three timed
      ``process(condition_image=None)`` requests (SAM at 1024^2, the AMG,
-     the ID map, the 512^2 edit), each with its SAM-phase seconds; the SAM
-     phase split once into encoder, decode batches, selection/NMS and ID
-     map; one AMG with the filters open (every candidate valid, NMS at its
-     worst) and one click; outputs must be finite (2, 512, 512, 3) uint8
-     and every kernel's launch counter must grow during the timed
-     requests.
+     the ID map, the 512^2 edit), each with its SAM-phase seconds, then two
+     with every resnet fused; the SAM phase split once into encoder,
+     decode batches, selection/NMS and ID map; one AMG with the filters
+     open (every candidate valid, NMS at its worst) and one click; outputs
+     must be finite (2, 512, 512, 3) uint8 and every kernel's launch
+     counter must grow during the timed requests.
 The last two lines are the kernels' JSON summary and the result line.
 Nothing here imports jax or the JAX package (editanything_tpu); the run
 checks that no module of either was loaded.
@@ -65,7 +70,16 @@ TWOWAY_SOURCE = "editanything_tpu_torch/csrc/sam_twoway.cu"
 TWOWAY_REPLACES = "editanything_tpu/core/kernels.py:347"
 UPSCALE_SOURCE = "editanything_tpu_torch/csrc/sam_upscale.cu"
 UPSCALE_REPLACES = "editanything_tpu/core/kernels.py:209"
-CUDA_LIBRARIES = ("flash_attention", "sam_twoway", "sam_upscale")
+RESNET_SOURCE = "editanything_tpu_torch/csrc/resnet_fused.cu"
+RESNET_REPLACES = "editanything_tpu/core/kernels.py:604"
+CUDA_LIBRARIES = ("flash_attention", "sam_twoway", "sam_upscale", "resnet_fused")
+# the card's published peaks (H100 SXM data sheet, dense): bf16 tensor
+# cores, fp32 outside them, device memory; a kernel's bound is the larger of
+# its operations over the peak and its bytes (each input read once, each
+# output written once) over the memory rate
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
 
 # (label, B, H, N, M, Dqk, Dv, scale): UNet/ControlNet attention at 512^2
 # with 2 samples under CFG (B = 4), per resolution level; the VAE decoder's
@@ -113,7 +127,8 @@ GN_BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 6.25e-2}
 KEY_TILE = 64          # keys per tile in csrc/flash_attention.cu (kBlockM)
 HEADLINE = {"flash_attention": "unet 64x64 self",
             "group_norm_silu": "vae decoder 512x512x256",
-            "sam_twoway": "amg batch", "sam_upscale_hyper": "amg batch"}
+            "sam_twoway": "amg batch", "sam_upscale_hyper": "amg batch",
+            "resnet_fused": "unet 64x64 320->320"}
 # SAM decoder kernels: (label, prompts, tokens) for the two-way transformer
 # (the AMG's batch of 256 grid points with 5 + 1 tokens; the click
 # predictor's 1 prompt with 5 + 16 tokens) and prompts for the upscale
@@ -158,8 +173,31 @@ TINY_IMAGE_LEVELS = 2
 # rounding alone moves the tiny edit's latents by ~1 and its images by ~12
 # levels, so the bound is stated against that distance, measured in the run.
 TINY_BF16_RATIO = 2
-FULL_WIDTH_REQUESTS = 2     # edit-only requests (phase 4)
+# the fused resnet block: (label, N, Cin, Cout, time embedding, H = W, eps)
+# at 512^2 with 2 samples under CFG (UNet batch 4) and the VAE at batch 2
+RESNET_SHAPES = [
+    ("unet 64x64 320->320", 4, 320, 320, True, 64, 1e-5),
+    ("unet 64x64 640->320", 4, 640, 320, True, 64, 1e-5),
+    ("unet 8x8 2560->1280", 4, 2560, 1280, True, 8, 1e-5),
+    ("vae 512x512 128->128", 2, 128, 128, False, 512, 1e-6),
+    ("vae 512x512 256->128", 2, 256, 128, False, 512, 1e-6),
+]
+# its bounds against the twin: fp32 1e-4 (exact fp32 products summed in
+# other orders; outputs ~10); bf16 both of: max abs error 2^-6 x max|twin's
+# output| (two ulps of the largest output: both sides round xn, hn and the
+# output at the same points, so they differ by single ulps where a sum taken
+# in another order flips a rounding) and relative RMS error 2e-3, which
+# rejects faults whose largest change is near one ulp
+RESNET_F32_BOUND = 1e-4
+RESNET_BF16_REL_BOUND = 2.0 ** -6
+RESNET_BF16_RMS_BOUND = 2e-3
+# one full-width denoise step in bf16 with the resnets fused may lie at most
+# this many times as far from the fp32 composed step as the bf16 composed
+# step does
+STEP_RATIO = 2
+FULL_WIDTH_REQUESTS = 2     # edit-only requests per switch setting (phase 4)
 MAIN_PATH_REQUESTS = 3      # SAM + edit requests (phase 5)
+FUSED_MAIN_PATH_REQUESTS = 2   # the same with every resnet fused (phase 5)
 
 
 def max_err(got, want) -> float:
@@ -239,6 +277,7 @@ def phase_device():
     flash_attention.build()
     kernels.build()
     kernels.build_sam()
+    kernels.build_resnet()
     print(f"[build] every kernel ready in {time.perf_counter() - t0:.1f} s "
           f"(build dir {os.path.relpath(build.BUILD_DIR, REPO)}; one nvcc per "
           f"CUDA source, in parallel)")
@@ -281,8 +320,21 @@ def phase_kernels():
             check(err <= bound, f"{what}: {err} > {bound}")
             if dtype == torch.bfloat16 and label.startswith("sam"):
                 headline[f"flash_attention {label}"] = (err, ms, plain, label)
+            if dtype == torch.bfloat16 and label == "vae mid 64x64":
+                sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v), reps)
+                print(f"[kernel]   F.scaled_dot_product_attention at the same "
+                      f"shape: {sdpa:.4f} ms")
             if dtype == torch.bfloat16 and label == HEADLINE["flash_attention"]:
                 headline["flash_attention"] = (err, ms, plain, label)
+                headline["flash_attention work"] = attention_work(
+                    b, h, n, m, dqk, dv)
+                # the library's yardstick, which the port never calls
+                sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v), reps)
+                headline["flash_attention library"] = sdpa
+                print(f"[kernel]   F.scaled_dot_product_attention at the same "
+                      f"shape: {sdpa:.4f} ms")
             del q, k, v, got, want
         for label, shape, eps, silu in GN_SHAPES:
             c = shape[1]
@@ -307,6 +359,7 @@ def phase_kernels():
             check(err <= bound, f"{what}: {err} > {bound}")
             if dtype == torch.bfloat16 and label == HEADLINE["group_norm_silu"]:
                 headline["group_norm_silu"] = (err, ms, plain, label)
+                headline["group_norm_silu work"] = group_norm_work(shape)
             del x, got, want
     torch.cuda.empty_cache()
     return headline
@@ -418,6 +471,7 @@ def phase_sam_kernels(headline: dict):
             if dtype == torch.bfloat16 and label == HEADLINE["sam_twoway"]:
                 headline["sam_twoway"] = (err, ms, plain_ms,
                                           f"{label} B={b} T={t}")
+                headline["sam_twoway work"] = twoway_work(packed, b, t, m)
             del got, want, tokens
         up = dec.output_upscaling
         args = (up[0].weight, up[0].bias, up[1].weight, up[1].bias,
@@ -443,9 +497,203 @@ def phase_sam_kernels(headline: dict):
             check(err <= bound, f"{what}: {err} > {bound}")
             if dtype == torch.bfloat16 and label == HEADLINE["sam_upscale_hyper"]:
                 headline["sam_upscale_hyper"] = (err, ms, plain_ms, f"{label} B={b}")
+                headline["sam_upscale_hyper work"] = upscale_work(b, 64)
             del got, want, keys
         del dec, packed, src
         torch.cuda.empty_cache()
+
+
+def bound_ms(ops: float, nbytes: float, peak: float = PEAK_BF16):
+    """(least time in ms, what bounds it) for work of `ops` operations at
+    `peak` and `nbytes` of device memory traffic."""
+    t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def attention_work(b, h, n, m, dqk, dv, itemsize=2):
+    """(FLOPs, bytes) of softmax(q k^T) v: both products; q, k, v read and
+    the output written once."""
+    return (2.0 * b * h * n * m * (dqk + dv),
+            itemsize * b * h * (n * dqk + m * dqk + m * dv + n * dv))
+
+
+def group_norm_work(shape, itemsize=2):
+    """(fp32 operations, bytes): ~10 per element (two statistics, the
+    affine and SiLU), one read and one write of the activation."""
+    numel = float(np.prod(shape))
+    return 10.0 * numel, 2.0 * itemsize * numel
+
+
+def twoway_work(packed, b, t, m, itemsize=2):
+    """(FLOPs, bytes) of SAM's two-way transformer for b prompts over one
+    image: every projection of the m image rows per prompt (layer 0's
+    token->image k/v projections of the shared keys once), both attention
+    products each way, the token-side projections and MLP; bytes: the keys
+    and pe read, the tokens and the weights read once, keys and queries
+    written."""
+    from editanything_tpu_torch.core.kernels import TWOWAY_WIDTH as d
+    di = d // 2
+    mlp = packed.mats["layers.0.mlp.lin1"][1][0]
+    macs = 0.0
+    for layer in range(packed.n_layers):
+        shared = 1 if layer == 0 else b
+        macs += 2 * m * d * di * shared            # t2i k, v projections
+        macs += 2 * m * d * di * b                 # i2t q, out projections
+        macs += 4 * t * m * di * b                 # t2i and i2t products
+        macs += b * (4 * t * d * d + 2 * t * t * d   # token self-attention
+                     + 4 * t * d * di              # t2i q/out, i2t k/v
+                     + 2 * t * d * mlp)            # MLP
+    macs += b * (2 * m * d * di + 2 * t * m * di + 2 * t * d * di)   # final
+    nbytes = (m * d * (itemsize + 4) + b * t * d * 4
+              + packed.w.numel() * itemsize + packed.v.numel() * 4
+              + b * (m + t) * d * itemsize)
+    return 2.0 * macs, float(nbytes)
+
+
+def upscale_work(b, e, itemsize=2):
+    """(FLOPs, bytes) of kernel C: per input pixel 4 taps 256->64, per
+    first-stage pixel 4 taps 64->32, the 4 hypernetwork products of the 16
+    output pixels; keys read, logits written."""
+    macs = b * e * e * (4 * 256 * 64 + 16 * 64 * 32 + 16 * 4 * 32)
+    return 2.0 * macs, float(itemsize * b * (e * e * 256 + 4 * 16 * e * e))
+
+
+def resnet_work(n, cin, cout, hw, temb, itemsize=2):
+    """(FLOPs, bytes) of one resnet block: both 3x3 convs and the 1x1
+    shortcut where Cin != Cout; x, weights (and trow) read once, the output
+    written once."""
+    sc = cin != cout
+    macs = n * hw * cout * (9 * cin + 9 * cout + (cin if sc else 0))
+    nbytes = itemsize * (n * hw * (cin + cout) + 9 * cin * cout
+                         + 9 * cout * cout + (cin * cout if sc else 0)
+                         + (n * cout if temb else 0))
+    return 2.0 * macs, float(nbytes)
+
+
+def resnet_inputs(g, dtype, n, cin, cout, temb, hw_side):
+    """x with per-channel offsets and scales, a block's parameters drawn
+    away from their init (norm scales ~1 +- 0.2, biases ~0.5, so channels
+    and groups differ) and trow, on the card."""
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale
+                + shift).to(dtype)
+    x = (torch.randn(n, cin, hw_side, hw_side, generator=g, device="cuda")
+         * (1 + torch.rand(1, cin, 1, 1, generator=g, device="cuda"))
+         + torch.randn(1, cin, 1, 1, generator=g, device="cuda")).to(dtype)
+    sc = cin != cout
+    args = (rnd(cin, scale=0.2, shift=1.0), rnd(cin, scale=0.5),
+            rnd(cout, cin, 3, 3, scale=(9 * cin) ** -0.5), rnd(cout, scale=0.5),
+            rnd(n, cout) if temb else None,
+            rnd(cout, scale=0.2, shift=1.0), rnd(cout, scale=0.5),
+            rnd(cout, cout, 3, 3, scale=(9 * cout) ** -0.5), rnd(cout, scale=0.5),
+            rnd(cout, cin, 1, 1, scale=cin ** -0.5) if sc else None,
+            rnd(cout, scale=0.5) if sc else None)
+    return x, args
+
+
+def resnet_faults(x, args, eps, want) -> dict:
+    """(max abs, relative RMS) errors against `want` of five planted faults,
+    made with the plain twin: padding with SiLU(shift) instead of 0, the
+    trow of another image (where there is one), GN2's groups shifted by one
+    channel, the shortcut dropped, the conv taps flipped."""
+    from editanything_tpu_torch.core import kernels as K
+
+    def errs(out):
+        return max_err(out, want), rel_rms(out, want)
+    faults = {name: errs(K.resnet_fused_reference(x, *args, eps=eps,
+                                                  fault=fault))
+              for name, fault in (("pad SiLU(shift)", "pad_silu_shift"),
+                                  ("GN2 groups shifted", "gn2_groups_shifted"),
+                                  ("shortcut dropped", "no_shortcut"))}
+    if args[4] is not None:
+        wrong = args[:4] + (args[4].roll(1, 0),) + args[5:]
+        faults["trow of another image"] = errs(K.resnet_fused_reference(
+            x, *wrong, eps=eps))
+    flipped = list(args)
+    flipped[2], flipped[7] = args[2].flip(2, 3), args[7].flip(2, 3)
+    faults["taps flipped"] = errs(K.resnet_fused_reference(x, *flipped, eps=eps))
+    return faults
+
+
+def composed_block(args, temb: bool, dtype):
+    """A ResnetBlock2D on the card holding `args` (its time_emb_proj
+    random), and a time embedding for it: the composed path's yardstick."""
+    from editanything_tpu_torch.models.blocks import ResnetBlock2D
+    cout, cin = args[2].shape[:2]
+    blk = ResnetBlock2D(cin, cout, 1280 if temb else None).to("cuda", dtype)
+    names = ("norm1.weight", "norm1.bias", "conv1.weight", "conv1.bias", None,
+             "norm2.weight", "norm2.bias", "conv2.weight", "conv2.bias",
+             "conv_shortcut.weight", "conv_shortcut.bias")
+    params = dict(blk.named_parameters())
+    with torch.no_grad():
+        for name, value in zip(names, args):
+            if name is not None and value is not None:
+                params[name].copy_(value)
+    return blk
+
+
+def with_fused_resnets(on: bool):
+    os.environ["EA_RESNET_FUSED"] = "1" if on else "0"
+
+
+def phase_resnet_kernel(headline: dict):
+    """Kernel E against its twin at the main path's UNet and VAE shapes,
+    with planted faults, and timed against the twin and the composed
+    block."""
+    from editanything_tpu_torch.core import kernels as K
+    g = torch.Generator("cuda").manual_seed(11)
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        reps = 5 if dtype == torch.bfloat16 else 1
+        for label, n, cin, cout, temb, side, eps in RESNET_SHAPES:
+            x, args = resnet_inputs(g, dtype, n, cin, cout, temb, side)
+            run = lambda: K.resnet_fused(x, *args, eps=eps)
+            plain = lambda: K.resnet_fused_reference(x, *args, eps=eps)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err, rms = max_err(got, want), rel_rms(got, want)
+            top = want.float().abs().max().item()
+            bf16 = dtype == torch.bfloat16
+            bound = RESNET_BF16_REL_BOUND * top if bf16 else RESNET_F32_BOUND
+            rms_bound = RESNET_BF16_RMS_BOUND if bf16 else float("inf")
+            faults = resnet_faults(x, args, eps, want)
+            del got
+            ms, plain_ms = cuda_ms(run, reps, warmup=1), cuda_ms(plain, reps, warmup=1)
+            composed = ""
+            if bf16:
+                blk = composed_block(args, temb, dtype)
+                t = (torch.randn(n, 1280, generator=g, device="cuda").to(dtype)
+                     if temb else None)
+                with torch.no_grad():
+                    with_fused_resnets(False)
+                    comp_ms = cuda_ms(lambda: blk(x, t), reps, warmup=1)
+                    with_fused_resnets(True)
+                    block_ms = cuda_ms(lambda: blk(x, t), reps, warmup=1)
+                    with_fused_resnets(False)
+                composed = (f", composed block {comp_ms:.4f} ms (the block "
+                            f"through kernel E {block_ms:.4f} ms)")
+                del blk
+            print(f"[kernel] resnet_fused {tag} {label} (N={n}, {side}x{side}, "
+                  f"eps={eps:g}): max_abs_err {err:.3e} <= {bound:.3e} (max|out| "
+                  f"{top:.3e}), rel_rms {rms:.3e} <= {rms_bound:.3e}; kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms{composed}")
+            what = f"resnet_fused {tag} {label}"
+            print("[kernel]   planted faults (max abs / rel rms): " + ", ".join(
+                f"{name} {e:.3e} / {r:.3e}" for name, (e, r) in faults.items()))
+            for name, (e, r) in faults.items():
+                check(e > bound or r > rms_bound,
+                      f"{what}: the bounds would pass a planted fault ({name}: "
+                      f"{e:.3e} / {r:.3e})")
+            check(err <= bound and rms <= rms_bound,
+                  f"{what}: {err} > {bound} or {rms} > {rms_bound}")
+            if bf16 and label == HEADLINE["resnet_fused"]:
+                headline["resnet_fused"] = (err, ms, plain_ms, label)
+                headline["resnet_fused composed"] = comp_ms
+                headline["resnet_fused work"] = resnet_work(n, cin, cout,
+                                                            side * side, temb)
+            del x, args, want
+            torch.cuda.empty_cache()
 
 
 def _checker_image(h, w):
@@ -470,23 +718,45 @@ def _square_mask(size, lo, hi):
 
 
 def phase_tiny_parity():
+    """The tiny edit with the composed and the fused resnets, and a tiny
+    txt2img with the fused resnets: CUDA against the CPU in fp32, and in
+    bf16 against the fp32 CPU run, at most TINY_BF16_RATIO times as far as
+    the bf16 CPU run."""
+    for kind, fused in (("edit", False), ("edit", True), ("txt2img", True)):
+        tiny_parity(kind, fused)
+
+
+def tiny_parity(kind: str, fused: bool):
+    from editanything_tpu_torch.core import kernels as K
     from editanything_tpu_torch.pipelines.bundle import random_bundle
     from editanything_tpu_torch.pipelines.edit import EditPipeline
+    from editanything_tpu_torch.pipelines.generate import GenerationPipeline
 
     def bundle():   # same seed on the CPU twice -> identical weights
-        return random_bundle(tiny=True, generator=torch.Generator().manual_seed(1))
-    args = dict(image=_checker_image(64, 64), mask=_square_mask(64, 16, 48),
-                prompt="a red cat", condition_image=_checker_image(64, 64),
+        return random_bundle(tiny=True, device="cpu",
+                             generator=torch.Generator().manual_seed(1))
+    args = dict(prompt="a red cat", condition_image=_checker_image(64, 64),
                 negative_prompt="blurry", num_samples=2, image_resolution=64,
-                num_steps=4, guidance_scale=9.0, control_scale=0.5,
-                alignment_ratio=0.75,
+                num_steps=4, guidance_scale=9.0,
                 noise=np.random.default_rng(7).standard_normal(
                     (2, 8, 8, 4)).astype(np.float32))
+    if kind == "edit":
+        args.update(image=_checker_image(64, 64), mask=_square_mask(64, 16, 48),
+                    control_scale=0.5, alignment_ratio=0.75)
+    with_fused_resnets(fused)
+    before = K.resnet_fused.launches
     outs = {}
     for device, dtype in (("cpu", torch.float32), ("cuda", torch.float32),
                           ("cpu", torch.bfloat16), ("cuda", torch.bfloat16)):
-        pipe = EditPipeline(bundle().to(device, dtype))
+        b = bundle().to(device, dtype)
+        pipe = EditPipeline(b) if kind == "edit" else \
+            GenerationPipeline(b, controlnet="sam")
         outs[device, dtype] = (pipe(**args, return_latents=True), pipe(**args))
+    with_fused_resnets(False)
+    check((K.resnet_fused.launches > before) == fused,
+          f"tiny {kind}: resnet_fused launched {K.resnet_fused.launches - before}"
+          f" times with the switch {'on' if fused else 'off'}")
+    what = f"tiny {kind}, resnets {'fused' if fused else 'composed'}"
 
     def dist(a, b):     # (latents max abs diff, images max diff in levels)
         (la, ia), (lb, ib) = outs[a], outs[b]
@@ -494,22 +764,22 @@ def phase_tiny_parity():
                 int(np.abs(ia.astype(np.int32) - ib.astype(np.int32)).max()))
     ref = ("cpu", torch.float32)
     lat_err, img_err = dist(("cuda", torch.float32), ref)
-    print(f"[parity] tiny fp32 edit, CUDA (kernels) vs CPU (plain twins): "
+    print(f"[parity] {what}, fp32, CUDA (kernels) vs CPU (plain twins): "
           f"latents max_abs_err {lat_err:.3e} <= {TINY_LATENT_TOL:g} "
           f"(|latents| <= {float(np.abs(outs[ref][0]).max()):.2f}); "
           f"images max diff {img_err} <= {TINY_IMAGE_LEVELS} levels")
-    check(lat_err <= TINY_LATENT_TOL, f"tiny latents differ by {lat_err}")
-    check(img_err <= TINY_IMAGE_LEVELS, f"tiny images differ by {img_err}")
+    check(lat_err <= TINY_LATENT_TOL, f"{what}: latents differ by {lat_err}")
+    check(img_err <= TINY_IMAGE_LEVELS, f"{what}: images differ by {img_err}")
     lat_k, img_k = dist(("cuda", torch.bfloat16), ref)
     lat_p, img_p = dist(("cpu", torch.bfloat16), ref)
-    print(f"[parity] tiny bf16 edit against the fp32 CPU edit: CUDA (kernels) "
+    print(f"[parity] {what}, bf16 against the fp32 CPU run: CUDA (kernels) "
           f"latents {lat_k:.3e}, images {img_k} levels; CPU (plain twins) "
           f"latents {lat_p:.3e}, images {img_p} levels; bound "
           f"{TINY_BF16_RATIO:g}x the CPU's")
     check(lat_k <= TINY_BF16_RATIO * lat_p,
-          f"tiny bf16 latents: {lat_k} > {TINY_BF16_RATIO} x {lat_p}")
+          f"{what} bf16 latents: {lat_k} > {TINY_BF16_RATIO} x {lat_p}")
     check(img_k <= TINY_BF16_RATIO * img_p,
-          f"tiny bf16 images: {img_k} > {TINY_BF16_RATIO} x {img_p} levels")
+          f"{what} bf16 images: {img_k} > {TINY_BF16_RATIO} x {img_p} levels")
 
 
 def phase_sam_parity():
@@ -530,7 +800,8 @@ def phase_sam_parity():
     img = np.random.default_rng(9).integers(0, 256, (128, 128, 3), np.uint8)
 
     def run(device, dtype):
-        sam = random_sam(cfg, generator=torch.Generator().manual_seed(2))
+        sam = random_sam(cfg, device="cpu",
+                         generator=torch.Generator().manual_seed(2))
         sam = sam.to(device=device, dtype=dtype).eval()
         with torch.inference_mode():
             x = preprocess(torch.from_numpy(img).to(device), cfg).to(dtype)
@@ -591,11 +862,56 @@ def full_width_request() -> dict:
                 control_scale=0.5)
 
 
-def phase_full_width():
+def launch_counters():
     from editanything_tpu_torch.core import flash_attention as FA
     from editanything_tpu_torch.core import kernels as K
+    return (FA.flash_attention, K.group_norm_silu, K.sam_twoway,
+            K.sam_upscale_hyper, K.resnet_fused)
+
+
+def denoise_step_check(bundle):
+    """One full-width denoise step (both ControlNets + the UNet, batch 4 =
+    2 samples x CFG, t = 500) in bf16 with the resnets composed and fused,
+    each against the same step in fp32 (the same bf16 weights, composed)."""
+    import copy
+    from editanything_tpu_torch.models import controlnet as CN
+    g = torch.Generator("cuda").manual_seed(21)
+    lat = torch.randn(4, 4, 64, 64, generator=g, device="cuda")
+    ctx = torch.randn(4, 77, 768, generator=g, device="cuda")
+    conds = [torch.rand(4, 3, 512, 512, generator=g, device="cuda")
+             for _ in range(2)]
+    t = torch.full((4,), 500, dtype=torch.int32, device="cuda")
+
+    def step(unet, cns, dtype):
+        with torch.inference_mode():
+            down, mid = CN.multi_controlnet_apply(
+                cns, lat.to(dtype), t, ctx.to(dtype),
+                [c.to(dtype) for c in conds], [0.5, 1.0])
+            return unet(lat.to(dtype), t, ctx.to(dtype),
+                        down_block_residuals=down,
+                        mid_block_residual=mid).float()
+    cns = bundle.controlnet_modules(("sam", "inpaint"))
+    composed = step(bundle.unet, cns, torch.bfloat16)
+    with_fused_resnets(True)
+    fused = step(bundle.unet, cns, torch.bfloat16)
+    with_fused_resnets(False)
+    unet32 = copy.deepcopy(bundle.unet).float()
+    want = step(unet32, [copy.deepcopy(c).float() for c in cns], torch.float32)
+    del unet32
+    torch.cuda.empty_cache()
+    d_comp, d_fused = max_err(composed, want), max_err(fused, want)
+    print(f"[full] one denoise step (UNet + 2 ControlNets, batch 4, bf16) "
+          f"against the fp32 composed step: composed resnets max_abs_err "
+          f"{d_comp:.3e}, fused {d_fused:.3e} <= {STEP_RATIO}x "
+          f"(|eps| <= {want.abs().max().item():.2f})")
+    check(d_fused <= STEP_RATIO * d_comp,
+          f"fused step {d_fused} > {STEP_RATIO} x composed {d_comp}")
+
+
+def phase_full_width():
     from editanything_tpu_torch.pipelines.bundle import random_bundle
     from editanything_tpu_torch.pipelines.edit import EditPipeline
+    from editanything_tpu_torch.pipelines.generate import GenerationPipeline
 
     t0 = time.perf_counter()
     bundle = random_bundle(tiny=False, dtype=torch.bfloat16, device="cuda",
@@ -607,36 +923,73 @@ def phase_full_width():
     print(f"[full] SD1.5 UNet + 2 ControlNets + VAE + CLIP-L, bf16, random "
           f"weights (seed 0): {n_params / 1e9:.3f} B parameters, "
           f"built in {time.perf_counter() - t0:.1f} s")
+    denoise_step_check(bundle)
     pipe = EditPipeline(bundle, controls=("sam", "inpaint"), inpaint_mode="blend")
     request = full_width_request()
+    counters = launch_counters()
 
-    def one(seed):
+    def one(seed, fused):
+        """(seconds, peak bytes, launches) of one request."""
+        with_fused_resnets(fused)
+        for fn in counters:
+            fn.launches = 0
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         out = pipe(**request, generator=torch.Generator("cuda").manual_seed(seed))
         seconds = time.perf_counter() - t          # the result is on the host
+        with_fused_resnets(False)
         check(out.shape == (2, 512, 512, 3) and out.dtype == np.uint8,
               f"edit returned {out.shape} {out.dtype}")
         check(pipe.last_nonfinite == 0,
               f"{pipe.last_nonfinite} non-finite values before the uint8 cast")
-        return seconds
+        return (seconds, torch.cuda.max_memory_allocated(),
+                {fn.__name__: fn.launches for fn in counters})
 
-    print(f"[full] warm-up request: {one(100):.3f} s")
-    torch.cuda.reset_peak_memory_stats()
-    FA.flash_attention.launches = 0
-    K.group_norm_silu.launches = 0
-    times = [one(101 + r) for r in range(FULL_WIDTH_REQUESTS)]
-    launches = {"flash_attention": FA.flash_attention.launches,
-                "group_norm_silu": K.group_norm_silu.launches}
-    peak = torch.cuda.max_memory_allocated()
-    for r, s in enumerate(times):
-        print(f"[full] edit-only request {r}: {s:.3f} s (512^2, supplied "
-              f"condition map, 2 samples, 30 steps, CFG 9)")
-    print(f"[full] mean {sum(times) / len(times):.3f} s/request; peak memory "
-          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
-    print(f"[full] kernel launches in the {len(times)} timed requests: {launches}")
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the edit path")
+    for fused in (False, True):
+        print(f"[full] warm-up request, resnets "
+              f"{'fused' if fused else 'composed'}: {one(100, fused)[0]:.3f} s")
+    runs = {False: [], True: []}
+    for r in range(FULL_WIDTH_REQUESTS):
+        for fused in (False, True):        # in turns
+            runs[fused].append(one(101 + r, fused))
+    for fused, results in runs.items():
+        mode = "fused (EA_RESNET_FUSED=1)" if fused else "composed"
+        times = [x[0] for x in results]
+        launches = results[0][2]
+        print(f"[full] edit-only requests, resnets {mode}: "
+              + " / ".join(f"{t:.3f}" for t in times)
+              + f" s (512^2, supplied condition map, 2 samples, 30 steps, CFG "
+              f"9); mean {sum(times) / len(times):.3f} s; peak memory "
+              f"{max(x[1] for x in results) / 2**30:.2f} GiB "
+              f"(torch.cuda.max_memory_allocated); launches per request "
+              f"{launches}")
+        check(all(x[2] == launches for x in results),
+              "launch counts differ between requests")
+        for name in ("flash_attention", "group_norm_silu"):
+            check(launches[name] > 0, f"{name} was not launched on the edit path")
+        check((launches["resnet_fused"] > 0) == fused,
+              f"resnet_fused launched {launches['resnet_fused']} times, "
+              f"resnets {mode}")
+
+    gen = GenerationPipeline(bundle, controlnet="sam")
+    with_fused_resnets(True)
+    before = counters[-1].launches
+    out, seconds = _synced(gen, prompt="a red cat sitting on a sofa",
+                           condition_image=_id_map(512, 512, 3),
+                           negative_prompt="blurry, low quality",
+                           num_samples=2, image_resolution=512, num_steps=30,
+                           guidance_scale=9.0,
+                           generator=torch.Generator("cuda").manual_seed(300))
+    with_fused_resnets(False)
+    n_resnet = counters[-1].launches - before
+    print(f"[full] txt2img request, resnets fused (512^2, 1 ControlNet, 2 "
+          f"samples, 30 steps, CFG 9): {seconds:.3f} s; {n_resnet} resnet_fused "
+          f"launches")
+    check(out.shape == (2, 512, 512, 3) and out.dtype == np.uint8
+          and gen.last_nonfinite == 0, f"txt2img returned {out.shape} "
+          f"{out.dtype}, {gen.last_nonfinite} non-finite values")
+    check(n_resnet > 0, "txt2img did not launch resnet_fused")
     return bundle
 
 
@@ -652,8 +1005,6 @@ def _synced(fn, *args, **kwargs):
 def phase_main_path(bundle) -> dict:
     """SAM ViT-H + the SD1.5 bundle in the editor: the main path as a user
     calls it, ``process`` with no condition map."""
-    from editanything_tpu_torch.core import flash_attention as FA
-    from editanything_tpu_torch.core import kernels as K
     from editanything_tpu_torch.models import sam as SAM
     from editanything_tpu_torch.perception import amg as A
     from editanything_tpu_torch.pipelines.bundle import random_sam
@@ -700,8 +1051,8 @@ def phase_main_path(bundle) -> dict:
 
     print(f"[main] warm-up request: {one(200):.3f} s (SAM phase "
           f"{sam_seconds[-1]:.3f} s)")
-    counters = (FA.flash_attention, K.group_norm_silu, K.sam_twoway,
-                K.sam_upscale_hyper)
+    all_counters = launch_counters()
+    counters = all_counters[:4]       # resnet_fused runs under the switch only
     for fn in counters:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -719,6 +1070,23 @@ def phase_main_path(bundle) -> dict:
     print(f"[main] kernel launches in the {len(times)} timed requests: {launches}")
     for name, count in launches.items():
         check(count > 0, f"{name} was not launched on the main path")
+
+    # the main path with every resnet fused
+    with_fused_resnets(True)
+    for fn in all_counters:
+        fn.launches = 0
+    sam_seconds.clear()
+    fused_times = [one(211 + r) for r in range(FUSED_MAIN_PATH_REQUESTS)]
+    fused_launches = {fn.__name__: fn.launches for fn in all_counters}
+    with_fused_resnets(False)
+    for r, (total, sam_s) in enumerate(zip(fused_times, sam_seconds)):
+        print(f"[main] request {r} with every resnet fused (EA_RESNET_FUSED=1): "
+              f"{total:.3f} s, of which SAM phase {sam_s:.3f} s")
+    print(f"[main] kernel launches in the {len(fused_times)} fused requests: "
+          f"{fused_launches}")
+    for name, count in fused_launches.items():
+        check(count > 0, f"{name} was not launched on the fused main path")
+    launches["resnet_fused"] = fused_launches["resnet_fused"]
 
     # the SAM phase once more, split (each part synchronised)
     with torch.inference_mode():
@@ -769,6 +1137,7 @@ def main() -> int:
     smi = phase_device()
     headline = phase_kernels()
     phase_sam_kernels(headline)
+    phase_resnet_kernel(headline)
     phase_tiny_parity()
     phase_sam_parity()
     bundle = phase_full_width()
@@ -781,12 +1150,21 @@ def main() -> int:
             ("flash_attention", "cuda", FLASH_SOURCE, FLASH_REPLACES),
             ("group_norm_silu", "triton", GN_SOURCE, GN_REPLACES),
             ("sam_twoway", "cuda", TWOWAY_SOURCE, TWOWAY_REPLACES),
-            ("sam_upscale_hyper", "cuda", UPSCALE_SOURCE, UPSCALE_REPLACES)):
+            ("sam_upscale_hyper", "cuda", UPSCALE_SOURCE, UPSCALE_REPLACES),
+            ("resnet_fused", "cuda", RESNET_SOURCE, RESNET_REPLACES)):
         err, ms, plain, label = headline[name]
-        rows.append({"name": name, "route": route, "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                     "shape": f"{label}, bf16"})
+        ops, nbytes = headline[f"{name} work"]
+        least, by = bound_ms(ops, nbytes, PEAK_FP32 if name == "group_norm_silu"
+                             else PEAK_BF16)
+        row = {"name": name, "route": route, "source": source,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "bound_ms": least, "bound_by": by,
+               "library_ms": headline.get(f"{name} library"),
+               "shape": f"{label}, bf16"}
+        if name == "resnet_fused":
+            row["composed_ms"] = headline["resnet_fused composed"]
+        rows.append(row)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """The port's kernels beside ``editanything_tpu/core/kernels.py``, each with
-its plain PyTorch twin: GroupNorm(+SiLU) in Triton (below), and SAM's mask
-decoder kernels in CUDA C++ (``sam_twoway``, ``sam_upscale_hyper``; their
-sources, with the note on what bounds them, are ``csrc/sam_twoway.cu`` and
-``csrc/sam_upscale.cu``).
+its plain PyTorch twin: GroupNorm(+SiLU) in Triton (below), SAM's mask
+decoder kernels in CUDA C++ (``sam_twoway``, ``sam_upscale_hyper``) and the
+fused SD resnet block in CUDA C++ (``resnet_fused``); the CUDA sources, with
+the note on what bounds each, are ``csrc/sam_twoway.cu``,
+``csrc/sam_upscale.cu`` and ``csrc/resnet_fused.cu``.
 
 GroupNorm(+SiLU) replaces the Pallas TPU kernel ``editanything_tpu/core/kernels.py``
 (``_gn_silu_kernel``, :37; ``_gn_silu_pallas``, :121; ``group_norm_silu``,
@@ -528,3 +529,173 @@ def sam_upscale_hyper(src, hyper, w1, b1, ln_w, ln_b, w2, b2, *,
 
 
 sam_upscale_hyper.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The fused SD resnet block (kernel E), CUDA C++ through ctypes
+# ---------------------------------------------------------------------------
+
+RESNET_FAULTS = ("pad_silu_shift", "gn2_groups_shifted", "no_shortcut")
+
+
+def _group_stats(xf, num_groups, eps):
+    """Per-(image, channel) mean and 1/std of its group, over fp32 NCHW xf;
+    each (N, C, 1, 1)."""
+    n, c = xf.shape[:2]
+    g = xf.reshape(n, num_groups, -1)
+    rep = c // num_groups
+    mean = g.mean(-1).repeat_interleave(rep, dim=1)
+    rstd = torch.rsqrt(g.var(-1, correction=0) + eps).repeat_interleave(rep, dim=1)
+    return mean[:, :, None, None], rstd[:, :, None, None]
+
+
+def resnet_fused_reference(x, norm1_w, norm1_b, w1, b1, trow, norm2_w,
+                           norm2_b, w2, b2, wsc=None, bsc=None, *,
+                           num_groups: int = 32, eps: float = 1e-5,
+                           fault=None):
+    """Plain twin of kernel E over NCHW: GN1 -> SiLU -> conv3x3 -> + b1 +
+    trow -> GN2 -> SiLU -> conv3x3 -> + b2 + shortcut (the 1x1 conv
+    ``wsc``/``bsc``, or the identity when ``wsc`` is None). Weights in the
+    torch layout; ``trow`` (N, Cout) or None (no time embedding, the VAE).
+
+    The rounding points are the Pallas kernel's
+    (editanything_tpu/core/kernels.py:645-675), which the CUDA kernel keeps:
+    the normalised activations xn and hn are rounded to x's dtype before each
+    conv; the conv sums, h, GN2's statistics and the output sum stay fp32
+    until one final rounding; the shortcut takes the raw x with fp32 sums.
+    Zero padding comes after the normalisation.
+
+    ``fault`` plants one of ``RESNET_FAULTS`` (for the chip checks, which
+    must reject each): "pad_silu_shift" pads before normalising, so taps
+    outside the image see SiLU(shift) instead of 0; "gn2_groups_shifted"
+    takes GN2's group statistics one channel further on; "no_shortcut" drops
+    the shortcut."""
+    if fault is not None and fault not in RESNET_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}")
+    dt = x.dtype
+    xf = x.float()
+    pad = 0 if fault == "pad_silu_shift" else 1
+
+    def norm_silu(v, weight, bias, shifted=False):
+        # GroupNorm as scale = gamma * rstd, shift = beta - mean * scale (the
+        # Pallas kernel's _rn_group_stats), then SiLU, rounded to dt
+        if shifted:
+            mean, rstd = _group_stats(v.roll(-1, dims=1), num_groups, eps)
+            mean, rstd = mean.roll(1, dims=1), rstd.roll(1, dims=1)
+        else:
+            mean, rstd = _group_stats(v, num_groups, eps)
+        scale = weight.to(dt).float()[:, None, None] * rstd
+        shift = bias.to(dt).float()[:, None, None] - mean * scale
+        if pad == 0:
+            v = F.pad(v, (1, 1, 1, 1))
+        y = v * scale + shift
+        return (y * torch.sigmoid(y)).to(dt).float()
+
+    h = F.conv2d(norm_silu(xf, norm1_w, norm1_b), w1.to(dt).float(),
+                 padding=pad)
+    if trow is None:
+        h = h + b1.to(dt).float()[:, None, None]
+    else:
+        h = h + (trow.to(dt).float() + b1.to(dt).float())[:, :, None, None]
+    hn = norm_silu(h, norm2_w, norm2_b, shifted=fault == "gn2_groups_shifted")
+    out = F.conv2d(hn, w2.to(dt).float(), padding=pad) \
+        + b2.to(dt).float()[:, None, None]
+    if fault != "no_shortcut":
+        if wsc is not None:
+            out = out + F.conv2d(xf, wsc.to(dt).float()) \
+                + bsc.to(dt).float()[:, None, None]
+        else:
+            out = out + xf
+    return out.to(dt)
+
+
+@functools.cache
+def _resnet_library() -> ctypes.CDLL:
+    from editanything_tpu_torch.core.build import load_cuda_library
+    lib = load_cuda_library("resnet_fused")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # x, gn1 w/b, w1, b1, trow, gn2 w/b, w2, b2, wsc, bsc, out, h, scratch,
+    # N, cin, cout, H, W, groups, eps, dtype, stream
+    lib.ea_resnet_fused.argtypes = ([ptr] * 15 + [i32] * 6
+                                    + [ctypes.c_float, i32, ptr])
+    lib.ea_resnet_fused.restype = i32
+    lib.ea_resnet_scratch_floats.argtypes = [i32] * 7
+    lib.ea_resnet_scratch_floats.restype = ctypes.c_longlong
+    lib.ea_cuda_error_string.argtypes = [i32]
+    lib.ea_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_resnet() -> None:
+    """Compile and load kernel E's library (first use does this)."""
+    _resnet_library()
+
+
+def resnet_fused(x, norm1_w, norm1_b, w1, b1, trow, norm2_w, norm2_b, w2,
+                 b2, wsc=None, bsc=None, *, num_groups: int = 32,
+                 eps: float = 1e-5):
+    """The SD resnet block in one call (the arguments of
+    ``resnet_fused_reference``): x (N, Cin, H, W) -> (N, Cout, H, W) in x's
+    dtype, 3x3 convs in the torch layout (Cout, Cin, 3, 3) read as they are.
+
+    CUDA tensors launch kernel E (six launches on the current stream, eight
+    where conv2 is split over K; counted once in ``resnet_fused.launches``)
+    and take fp32 or bf16 with every parameter in x's dtype; CPU tensors
+    take the plain twin. Shapes the block cannot have raise: channels that
+    do not split into the groups, kernels other than 3x3, an identity
+    shortcut with Cin != Cout."""
+    if x.dim() != 4:
+        raise ValueError(f"resnet_fused takes NCHW, got {tuple(x.shape)}")
+    n, cin, hgt, wid = x.shape
+    cout = w1.shape[0]
+    if cin % num_groups or cout % num_groups:
+        raise ValueError(f"{cin} or {cout} channels do not split into "
+                         f"{num_groups} groups")
+    if (w1.shape != (cout, cin, 3, 3) or w2.shape != (cout, cout, 3, 3)
+            or (wsc is None and cin != cout)
+            or (wsc is not None and wsc.shape != (cout, cin, 1, 1))
+            or (trow is not None and trow.shape != (n, cout))):
+        raise ValueError(
+            f"resnet_fused takes 3x3 convs (Cout, Cin, 3, 3), a 1x1 shortcut "
+            f"(or none when Cin == Cout) and trow (N, Cout); got w1 "
+            f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}, wsc "
+            f"{None if wsc is None else tuple(wsc.shape)}, trow "
+            f"{None if trow is None else tuple(trow.shape)} for x "
+            f"{tuple(x.shape)}")
+    args = (norm1_w, norm1_b, w1, b1, trow, norm2_w, norm2_b, w2, b2, wsc, bsc)
+    if x.device.type == "cpu":
+        return resnet_fused_reference(x, *args, num_groups=num_groups, eps=eps)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"resnet_fused: no kernel for {x.device}")
+    dt = x.dtype
+    if dt not in _DTYPE_CODES:
+        raise TypeError(f"resnet_fused takes fp32 or bf16, got {dt}")
+    if trow is not None:    # the time-embedding row is rounded to dt
+        args = args[:4] + (trow.to(dt),) + args[5:]
+    if any(t is not None and (t.dtype != dt or t.device != x.device)
+           for t in args):
+        raise TypeError("resnet_fused: every parameter must have x's dtype "
+                        "and device")
+    # held until the launch is queued: the pointers are into these tensors
+    x = x.contiguous()
+    args = [None if t is None else t.contiguous() for t in args]
+    ptrs = [None if t is None else t.data_ptr() for t in args]
+    lib = _resnet_library()
+    dev = x.device
+    out = torch.empty((n, cout, hgt, wid), dtype=dt, device=dev)
+    h = torch.empty((n, cout, hgt, wid), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        scratch = torch.empty(lib.ea_resnet_scratch_floats(
+            n, cin, cout, hgt, wid, num_groups, int(wsc is not None)),
+            dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ea_resnet_fused(
+            x.data_ptr(), *ptrs, out.data_ptr(), h.data_ptr(),
+            scratch.data_ptr(), n, cin, cout, hgt, wid, num_groups,
+            float(eps), _DTYPE_CODES[dt], stream)
+    _raise_on(err, lib, "resnet_fused")
+    resnet_fused.launches += 1
+    return out
+
+
+resnet_fused.launches = 0

@@ -3,12 +3,15 @@
 Counterpart of ``editanything_tpu/models/blocks.py``. Module attribute paths
 are the diffusers names the JAX parameter trees follow (``norm1``,
 ``attn1.to_out.0``, ``ff.net.0.proj``, ...), so one state dict serves both
-packages (checkpoints/convert.py). The JAX package's opt-in fused resnet
-kernel (``resnet_fused``) is not ported; the composed ops run instead, as
-they do by default in the JAX package.
+packages (checkpoints/convert.py). Under the JAX package's opt-in switch
+``EA_RESNET_FUSED=1`` (read at every call, default off) every resnet block
+runs as one call of the fused resnet kernel (``kernels.resnet_fused``);
+otherwise the composed ops.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch.nn as nn
 import torch.nn.functional as F
@@ -33,9 +36,20 @@ class ResnetBlock2D(nn.Module):
                               if in_ch != out_ch else None)
 
     def forward(self, x, temb=None):
-        h = self.conv1(self.norm1(x, silu=True))
+        trow = None
         if temb is not None and self.time_emb_proj is not None:
             trow = self.time_emb_proj(F.silu(temb))
+        if os.environ.get("EA_RESNET_FUSED", "0") == "1":
+            sc = self.conv_shortcut
+            return K.resnet_fused(
+                x, self.norm1.weight, self.norm1.bias, self.conv1.weight,
+                self.conv1.bias, trow, self.norm2.weight, self.norm2.bias,
+                self.conv2.weight, self.conv2.bias,
+                None if sc is None else sc.weight,
+                None if sc is None else sc.bias,
+                num_groups=self.norm1.num_groups, eps=self.norm1.eps)
+        h = self.conv1(self.norm1(x, silu=True))
+        if trow is not None:
             h = h + trow[:, :, None, None].to(h.dtype)
         h = self.conv2(self.norm2(h, silu=True))
         if self.conv_shortcut is not None:

@@ -112,15 +112,25 @@ def _configs(tiny: bool):
     return C.sd15_unet(), C.VAEConfig(), C.clip_vit_l()
 
 
-def random_bundle(*, tiny: bool = True, dtype=torch.float32, device="cpu",
+def _target(device) -> torch.device:
+    """The device to build on; a CUDA device must exist (no silent CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port builds on the GPU unless "
+                           "the caller passes device='cpu'")
+    return device
+
+
+def random_bundle(*, tiny: bool = True, dtype=torch.float32, device="cuda",
                   generator: Optional[torch.Generator] = None) -> ModelBundle:
     """Randomly initialised bundle with ControlNets "sam" and "inpaint", for
     smoke runs: tiny=True at test widths (those of the JAX package's
     ``random_bundle``), tiny=False at SD1.5's published widths, with the
-    tiny test tokenizer. `generator` lives on `device` (default: seed 0
-    there). Unlike a fresh ControlNet, whose zero convs start at zero, every
-    conv is drawn, so the ControlNet residuals reach the UNet."""
-    device = torch.device(device)
+    tiny test tokenizer. Built on the GPU unless `device` says otherwise
+    (raises when there is none). `generator` lives on `device` (default:
+    seed 0 there). Unlike a fresh ControlNet, whose zero convs start at
+    zero, every conv is drawn, so the ControlNet residuals reach the UNet."""
+    device = _target(device)
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
     ucfg, vcfg, tcfg = _configs(tiny)
@@ -149,9 +159,10 @@ def module_from_tree(cls, cfg, tree: Mapping) -> nn.Module:
 
 
 @torch.no_grad()
-def random_sam(cfg: SAMConfig, *, device="cpu", dtype=torch.float32,
+def random_sam(cfg: SAMConfig, *, device="cuda", dtype=torch.float32,
                generator: Optional[torch.Generator] = None) -> Sam:
-    """A SAM with random weights, built on `device` in `dtype`, every
+    """A SAM with random weights, built on `device` (the GPU unless the
+    caller asks otherwise; raises when there is none) in `dtype`, every
     parameter drawn nonzero from `generator` (on `device`; default: seed 0
     there): zero rel-pos tables or biases would hide gather-order and bias
     bugs (tests/test_sam_parity.py:39-43). Linear and conv weights are
@@ -160,7 +171,7 @@ def random_sam(cfg: SAMConfig, *, device="cpu", dtype=torch.float32,
     1 + U(-0.1, 0.1) and shifts U(-0.1, 0.1), embeddings and the Fourier
     matrix N(0, 1), ``pos_embed`` N(0, 0.02) and the rel-pos tables
     N(0, 0.05)."""
-    device = torch.device(device)
+    device = _target(device)
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
     sam = _empty(Sam, cfg, device, dtype)

@@ -19,7 +19,7 @@ import torch
 
 from editanything_tpu_torch.engine.denoise import DenoiseConfig, build_denoiser
 from editanything_tpu_torch.pipelines.bundle import ModelBundle
-from editanything_tpu_torch.pipelines.generate import GenerationPipeline, to_uint8
+from editanything_tpu_torch.pipelines.generate import GenerationPipeline
 from editanything_tpu_torch.samplers.schedule import make_timesteps
 from editanything_tpu_torch.utils.image import HWC3, resize_image, resize_nearest
 
@@ -43,8 +43,6 @@ class EditPipeline(GenerationPipeline):
         super().__init__(bundle, controlnet=controls[0])
         self.controls = tuple(controls)
         self.inpaint_mode = inpaint_mode
-        # non-finite values in the last decoded batch, before the uint8 cast
-        self.last_nonfinite = None
 
     @staticmethod
     def _norm_mask(mask: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -120,18 +118,8 @@ class EditPipeline(GenerationPipeline):
 
         image_latents, mask_latents = self._latent_inputs(img, m, h, w,
                                                           num_samples)
-        if noise is None:
-            if generator is None:
-                generator = torch.Generator(device).manual_seed(seed)
-            latents = torch.randn(image_latents.shape, generator=generator,
-                                  device=device, dtype=torch.float32)
-        else:
-            latents = (noise.float() if isinstance(noise, torch.Tensor) else
-                       torch.tensor(np.asarray(noise), dtype=torch.float32))
-            latents = latents.permute(0, 3, 1, 2).to(device)
-            if latents.shape != image_latents.shape:
-                raise ValueError(f"noise is {tuple(noise.shape)}; this edit "
-                                 f"needs {(num_samples, h // 8, w // 8, 4)}")
+        latents = self.initial_latents(image_latents.shape, noise=noise,
+                                       generator=generator, seed=seed)
 
         # the same tensor re-noises the original in blend mode
         inputs = {
@@ -147,6 +135,4 @@ class EditPipeline(GenerationPipeline):
         out = denoise(params, latents.to(b.dtype), context, inputs)
         if return_latents:
             return out.float().permute(0, 2, 3, 1).cpu().numpy()
-        imgs = b.vae.decode_from_latents(out.to(b.dtype)).float()
-        self.last_nonfinite = int((~torch.isfinite(imgs)).sum())
-        return to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy())
+        return self.decode(out)

@@ -1,20 +1,29 @@
-"""Shared pipeline helpers: uint8 output, condition maps, prompt context,
-VAE encode.
+"""txt2img with one ControlNet (the reference's sam2image path), and the
+helpers every pipeline over a bundle shares: uint8 output, condition maps,
+prompt context, VAE encode, initial latents.
 
-Counterpart of the helpers of ``editanything_tpu/pipelines/generate.py``
-(``to_uint8``, ``GenerationPipeline.prepare_condition``/``embed_prompts``/
-``_encode``). Its txt2img ``__call__`` and the tiled VAE encode are not
-ported yet (ROADMAP Queue 1 item 10).
+Counterpart of ``editanything_tpu/pipelines/generate.py``
+(``GenerationPipeline.__call__``, :168-229, with ``to_uint8``,
+``prepare_condition``, ``embed_prompts`` and ``_encode``) for UniPC, as the
+port's denoiser runs it. Two additions, as in ``EditPipeline``: the initial
+latents can be handed in (``noise``) or drawn from an explicit
+``generator``. No safety checker is loaded (the JAX bundle's default), so
+the images pass through. Not ported yet: per-pixel scale maps, encoder
+caching and the tiled VAE (ROADMAP Queue 1 items 4, 9 and 10).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from editanything_tpu_torch.engine import prompts as P
+from editanything_tpu_torch.engine.denoise import DenoiseConfig, build_denoiser
 from editanything_tpu_torch.pipelines.bundle import ModelBundle
-from editanything_tpu_torch.utils.image import HWC3, resize_bilinear
+from editanything_tpu_torch.samplers.schedule import make_timesteps
+from editanything_tpu_torch.utils.image import HWC3, resize_bilinear, resize_image
 
 
 def to_uint8(img_f32: np.ndarray) -> np.ndarray:
@@ -24,14 +33,18 @@ def to_uint8(img_f32: np.ndarray) -> np.ndarray:
 
 
 class GenerationPipeline:
-    """The helpers every pipeline over a bundle shares (txt2img itself is
-    not ported yet)."""
+    """txt2img with one ControlNet condition (sam2image.py semantics); the
+    base of ``EditPipeline``."""
 
     vae_oneshot_max_px = 2048
 
     def __init__(self, bundle: ModelBundle, controlnet: str = "sam"):
         self.bundle = bundle
         self.controlnet = controlnet
+        # non-finite values in the last decoded batch, before the uint8 cast
+        self.last_nonfinite = None
+        # per-image NSFW flags of the last call; None: no checker is loaded
+        self.last_nsfw = None
 
     def _encode(self, x):
         """(B, 3, H, W) in [-1, 1] -> scaled latents (fp32)."""
@@ -58,3 +71,80 @@ class GenerationPipeline:
             layer_skip=b.text_cfg.layer_skip)
         rep = lambda x: x.expand(batch, -1, -1).to(b.dtype)
         return {"cond": rep(cond), "uncond": rep(uncond)}
+
+    def initial_latents(self, shape, *, noise=None,
+                        generator: Optional[torch.Generator] = None,
+                        seed: int = 0) -> torch.Tensor:
+        """(B, 4, h, w) fp32 initial latents on the bundle's device: `noise`
+        when given (the JAX package's (B, h, w, 4) layout), else drawn from
+        `generator` (on that device; default: seeded with `seed`)."""
+        device = self.bundle.device
+        if noise is None:
+            if generator is None:
+                generator = torch.Generator(device).manual_seed(seed)
+            return torch.randn(shape, generator=generator, device=device,
+                               dtype=torch.float32)
+        latents = (noise.float() if isinstance(noise, torch.Tensor) else
+                   torch.tensor(np.asarray(noise), dtype=torch.float32))
+        latents = latents.permute(0, 3, 1, 2).to(device)
+        if latents.shape != shape:
+            b, c, h, w = shape
+            raise ValueError(f"noise is {tuple(noise.shape)}; this call needs "
+                             f"{(b, h, w, c)}")
+        return latents
+
+    def decode(self, latents) -> np.ndarray:
+        """Final latents -> (B, H, W, 3) uint8 images, counting non-finite
+        values before the cast."""
+        imgs = self.bundle.vae.decode_from_latents(
+            latents.to(self.bundle.dtype)).float()
+        self.last_nonfinite = int((~torch.isfinite(imgs)).sum())
+        return to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy())
+
+    @torch.inference_mode()
+    def __call__(self, *, prompt: str, condition_image: np.ndarray,
+                 negative_prompt: str = "", num_samples: int = 1,
+                 image_resolution: int = 512, num_steps: int = 20,
+                 guidance_scale: float = 9.0, control_scale: float = 1.0,
+                 scale_map: Optional[np.ndarray] = None,
+                 guess_mode: bool = False, sampler: str = "unipc",
+                 seed: int = 0, encoder_interval: int = 1,
+                 generator: Optional[torch.Generator] = None,
+                 noise=None, return_latents: bool = False) -> np.ndarray:
+        """Returns (num_samples, H, W, 3) uint8 images, H x W the condition
+        map resized to `image_resolution` (sam2image.py:146-156), or with
+        return_latents the final (num_samples, H/8, W/8, 4) fp32 latents. The
+        initial latents are `noise` when given ((num_samples, H/8, W/8, 4)),
+        else drawn from `generator` (default: seeded with `seed`)."""
+        if scale_map is not None:
+            raise NotImplementedError("not ported yet: per-pixel ControlNet "
+                                      "scale maps (ROADMAP Queue 1 item 4)")
+        if encoder_interval != 1:
+            raise NotImplementedError("not ported yet: encoder_interval > 1 "
+                                      "(ROADMAP Queue 1 item 9)")
+        b = self.bundle
+        sized = resize_image(HWC3(condition_image.astype(np.uint8)),
+                             image_resolution)
+        h, w = sized.shape[:2]
+        dcfg = DenoiseConfig(
+            unet=b.unet_cfg, controlnets=b.controlnet_cfgs((self.controlnet,)),
+            num_steps=num_steps, sampler=sampler, guess_mode=guess_mode)
+        denoise = build_denoiser(
+            dcfg, b.noise_schedule(),
+            make_timesteps(num_steps, spacing=dcfg.timestep_spacing))
+        context = self.embed_prompts(prompt, negative_prompt, num_samples)
+        inputs = {
+            "controlnet_conds": [self.prepare_condition(condition_image, h, w,
+                                                        num_samples)],
+            "controlnet_scales": [float(control_scale)],
+            "guidance_scale": float(guidance_scale),
+        }
+        latents = self.initial_latents((num_samples, 4, h // 8, w // 8),
+                                       noise=noise, generator=generator,
+                                       seed=seed)
+        params = {"unet": b.unet,
+                  "controlnets": b.controlnet_modules((self.controlnet,))}
+        out = denoise(params, latents.to(b.dtype), context, inputs)
+        if return_latents:
+            return out.float().permute(0, 2, 3, 1).cpu().numpy()
+        return self.decode(out)

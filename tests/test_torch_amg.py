@@ -169,7 +169,8 @@ def test_encode_id_map_matches_jax(c, out_hw):
 def test_whole_amg_matches_jax_tiny():
     """4x4 points with the quality filters open (every candidate valid):
     encoder, batched decode, NMS, slot compaction and the ID map."""
-    sam = random_sam(TINY, generator=torch.Generator().manual_seed(11)).eval()
+    sam = random_sam(TINY, device="cpu",
+                     generator=torch.Generator().manual_seed(11)).eval()
     tree = to_tree(sam)
     cfg = dict(points_per_side=4, points_per_batch=8, pred_iou_thresh=-10.0,
                stability_score_thresh=-1.0, max_masks=16)

@@ -110,7 +110,7 @@ def test_edit_slice_matches_jax(bundles):
 
 def test_random_bundle_edit_draws_from_explicit_generator():
     args = _edit_args()
-    pipe = EditPipeline(random_bundle(tiny=True,
+    pipe = EditPipeline(random_bundle(tiny=True, device="cpu",
                                       generator=torch.Generator().manual_seed(0)))
     a = pipe(**args, generator=torch.Generator().manual_seed(3))
     b = pipe(**args, generator=torch.Generator().manual_seed(3))
@@ -143,10 +143,15 @@ def test_port_imports_no_jax():
             "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
             "    importlib.import_module(m.name)\n"
             "img = np.zeros((64, 64, 3), np.uint8)\n"
-            "out = EditPipeline(random_bundle(tiny=True))(\n"
-            "    image=img, mask=img[..., 0], prompt='a cat', condition_image=img,\n"
-            "    image_resolution=64, num_steps=1)\n"
+            "pipe = EditPipeline(random_bundle(tiny=True, device='cpu'))\n"
+            "args = dict(image=img, mask=img[..., 0], prompt='a cat',\n"
+            "            condition_image=img, image_resolution=64, num_steps=1)\n"
+            "out = pipe(**args)\n"
             "assert out.shape == (1, 64, 64, 3), out.shape\n"
+            "import os\n"
+            "os.environ['EA_RESNET_FUSED'] = '1'\n"
+            "fused = pipe(**args)\n"
+            "assert np.abs(fused.astype(int) - out.astype(int)).max() <= 2\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'triton', 'editanything_tpu'))\n"
             "assert not bad, bad\n")

@@ -68,7 +68,8 @@ def editors():
         controlnets={n: (port_cfg(c), module_from_tree(ControlNetModel,
                                                        port_cfg(c), t))
                      for n, (c, t) in jb.controlnets.items()})
-    sam = random_sam(TINY, generator=torch.Generator().manual_seed(21)).eval()
+    sam = random_sam(TINY, device="cpu",
+                     generator=torch.Generator().manual_seed(21)).eval()
     jed = JaxEditor(jb, sam=(JAX_TINY, to_tree(sam)), extra_inpaint=True,
                     amg_config=JA.AMGConfig(**AMG))
     ted = EditAnythingEditor(tb, sam=(TINY, sam), extra_inpaint=True,
@@ -172,7 +173,8 @@ def test_editor_path_imports_neither_jax_nor_pil():
         "cfg = SAMConfig(img_size=64, patch_size=8, embed_dim=32, depth=2,\n"
         "                num_heads=2, global_attn_indexes=(1,), window_size=4,\n"
         "                out_chans=16, prompt_embed_dim=16, decoder_mlp_dim=32)\n"
-        "ed = EditAnythingEditor(random_bundle(tiny=True), sam=(cfg, random_sam(cfg)),\n"
+        "ed = EditAnythingEditor(random_bundle(tiny=True, device='cpu'),\n"
+        "                        sam=(cfg, random_sam(cfg, device='cpu')),\n"
         "                        amg_config=AMGConfig(points_per_side=4,\n"
         "                                             points_per_batch=16))\n"
         "img = np.zeros((64, 64, 3), np.uint8)\n"

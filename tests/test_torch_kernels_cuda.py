@@ -17,7 +17,10 @@ bf16 GroupNorm 6.25e-2, one bf16 ulp at outputs below 16. SAM's decoder
 kernels (two-way transformer, upscale + hypernetwork) at SAM's published
 decoder widths with small batches: fp32 1e-4 absolute (exact fp32 products
 summed in other orders; outputs of magnitude ~1-10); bf16 the bounds of
-chip_smoke.py, stated against the twin's largest output.
+chip_smoke.py, stated against the twin's largest output. The fused resnet
+block: fp32 1e-4 absolute (exact fp32 products summed in other orders);
+bf16 the bounds of chip_smoke.py (2^-6 of the twin's largest output and a
+relative RMS error of 2e-3).
 """
 
 import numpy as np
@@ -203,3 +206,76 @@ def test_sam_kernels_refuse_other_widths(cuda_device):
                              torch.zeros(32, device=cuda_device),
                              torch.zeros(32, 16, 2, 2, device=cuda_device),
                              torch.zeros(16, device=cuda_device))
+
+
+# the fused resnet block (kernel E): (cin, cout, time embedding, eps, H, W,
+# groups), with a K that is no multiple of the 32-wide stage (16 x 9), tiles
+# cut by the image edge (12 x 20, 9 x 9) and more channels than one tile
+RESNET_CASES = [(64, 32, True, 1e-5, 16, 16, 32),
+                (32, 32, False, 1e-6, 12, 20, 32),
+                (16, 32, True, 1e-5, 9, 9, 8),
+                (320, 640, True, 1e-5, 8, 8, 32)]
+RESNET_BF16_REL = 2.0 ** -6      # chip_smoke.py RESNET_BF16_REL_BOUND
+RESNET_BF16_RMS = 2e-3           # chip_smoke.py RESNET_BF16_RMS_BOUND
+
+
+def _resnet_inputs(device, dtype, cin, cout, temb, h, w, groups, seed):
+    """x with per-channel offsets and scales, a block's parameters drawn
+    away from their init (norm scales ~1 +- 0.2, biases ~0.5) and trow."""
+    g = torch.Generator(device).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=g, device=device) * scale
+                + shift).to(dtype)
+    x = (torch.randn(2, cin, h, w, generator=g, device=device)
+         * (1 + torch.rand(1, cin, 1, 1, generator=g, device=device))
+         + torch.randn(1, cin, 1, 1, generator=g, device=device)).to(dtype)
+    args = (rnd(cin, scale=0.2, shift=1.0), rnd(cin, scale=0.5),
+            rnd(cout, cin, 3, 3, scale=(9 * cin) ** -0.5), rnd(cout, scale=0.5),
+            rnd(2, cout) if temb else None,
+            rnd(cout, scale=0.2, shift=1.0), rnd(cout, scale=0.5),
+            rnd(cout, cout, 3, 3, scale=(9 * cout) ** -0.5), rnd(cout, scale=0.5),
+            rnd(cout, cin, 1, 1, scale=cin ** -0.5) if cin != cout else None,
+            rnd(cout, scale=0.5) if cin != cout else None)
+    return x, args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,temb,eps,h,w,groups", RESNET_CASES)
+def test_resnet_fused_kernel_matches_plain(cuda_device, dtype, cin, cout, temb,
+                                           eps, h, w, groups):
+    x, args = _resnet_inputs(cuda_device, dtype, cin, cout, temb, h, w,
+                             groups, seed=6)
+    before = tk.resnet_fused.launches
+    got = tk.resnet_fused(x, *args, num_groups=groups, eps=eps)
+    torch.cuda.synchronize()
+    assert tk.resnet_fused.launches == before + 1
+    want = tk.resnet_fused_reference(x, *args, num_groups=groups, eps=eps)
+    assert got.shape == want.shape == (2, cout, h, w) and got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        assert err <= RESNET_BF16_REL * want.float().abs().max().item()
+        rms = ((got.float() - want.float()).norm() / want.float().norm()).item()
+        assert rms <= RESNET_BF16_RMS
+    else:
+        assert err <= 1e-4
+
+
+@pytest.mark.cuda
+def test_resnet_block_launches_the_kernel_under_the_switch(cuda_device,
+                                                           monkeypatch):
+    from editanything_tpu_torch.models.blocks import ResnetBlock2D
+    blk = ResnetBlock2D(64, 32, 48, num_groups=32).to(cuda_device)
+    x = torch.randn(2, 64, 16, 16, device=cuda_device)
+    t = torch.randn(2, 48, device=cuda_device)
+    with torch.no_grad():
+        monkeypatch.setenv("EA_RESNET_FUSED", "0")
+        before = tk.resnet_fused.launches
+        composed = blk(x, t)
+        assert tk.resnet_fused.launches == before
+        monkeypatch.setenv("EA_RESNET_FUSED", "1")
+        fused = blk(x, t)
+        torch.cuda.synchronize()
+    assert tk.resnet_fused.launches == before + 1
+    assert (fused - composed).abs().max().item() <= 1e-4

@@ -64,7 +64,8 @@ def to_tree(module):
 
 @pytest.fixture(scope="module")
 def pair():
-    sam = random_sam(TINY, generator=torch.Generator().manual_seed(3)).eval()
+    sam = random_sam(TINY, device="cpu",
+                     generator=torch.Generator().manual_seed(3)).eval()
     return sam, to_tree(sam)
 
 

@@ -3,6 +3,7 @@
 
     python3 tools/profile_torch_edit.py        # from the repository root; one CUDA GPU
     python3 tools/profile_torch_edit.py --sam  # the SAM phase of the main path
+    python3 tools/profile_torch_edit.py --fused  # the edit, every resnet fused
 
 The configuration is chip_smoke.py's phase 4: SD1.5 UNet + two ControlNets +
 VAE + CLIP-L at published widths, random bf16 weights from seed 0, a 512^2
@@ -18,7 +19,8 @@ through ``EditPipeline``. After one warm-up request it runs:
      of kernel intervals) and its idle share of the traced span. Tracing
      slows the host, so that idle share is an upper bound; the line after
      it sets the busy time against the untraced requests.
-With ``--sam`` it profiles the SAM phase instead, as chip_smoke.py's phase
+With ``--fused`` the edit runs with EA_RESNET_FUSED=1, so that every resnet
+block goes through the fused resnet kernel. With ``--sam`` it profiles the SAM phase instead, as chip_smoke.py's phase
 5 runs it: SAM ViT-H with random bf16 weights (seed 7) in
 ``EditAnythingEditor.get_sam_control`` on a 512^2 image (encoder at 1024^2,
 the 32x32-point AMG in 4 batches of 256, selection and NMS, the ID map):
@@ -47,6 +49,9 @@ CATEGORIES = [
     ("SAM two-way, row tiles (csrc/sam_twoway.cu)", ("twoway_rows",)),
     ("SAM two-way, tokens (csrc/sam_twoway.cu)", ("twoway_tokens",)),
     ("SAM upscale + hypernetwork (csrc/sam_upscale.cu)", ("upscale_kernel",)),
+    ("fused resnet (csrc/resnet_fused.cu)",
+     ("::conv_kernel<", "::stats_kernel<", "::finalize_kernel<",
+      "::store_kernel<")),
     ("GroupNorm+SiLU (Triton)", ("_gn_stats", "_gn_apply")),
     ("cuDNN layout NCHW->NHWC", ("nchwToNhwc",)),
     ("cuDNN layout NHWC->NCHW", ("nhwcToNchw",)),
@@ -212,8 +217,13 @@ def main() -> int:
     print(smi)
     bundle = random_bundle(tiny=False, dtype=torch.bfloat16, device="cuda",
                            generator=torch.Generator("cuda").manual_seed(0))
+    if sys.argv[1:] not in ([], ["--sam"], ["--fused"]):
+        print(__doc__, file=sys.stderr)
+        return 2
     if sys.argv[1:] == ["--sam"]:
         return profile_sam_phase(bundle, smi)
+    fused = sys.argv[1:] == ["--fused"]
+    os.environ["EA_RESNET_FUSED"] = "1" if fused else "0"
     pipe = EditPipeline(bundle, controls=("sam", "inpaint"),
                         inpaint_mode="blend")
     request = chip_smoke.full_width_request()
@@ -225,12 +235,11 @@ def main() -> int:
         return time.perf_counter() - t
 
     print(f"[profile] warm-up request: {one(100):.3f} s")
-    FA.flash_attention.launches = K.group_norm_silu.launches = 0
+    counters = (FA.flash_attention, K.group_norm_silu, K.resnet_fused)
+    for fn in counters:
+        fn.launches = 0
     untraced = [one(101 + r) for r in range(UNTRACED_REQUESTS)]
-    launches = {"flash_attention": FA.flash_attention.launches
-                // UNTRACED_REQUESTS,
-                "group_norm_silu": K.group_norm_silu.launches
-                // UNTRACED_REQUESTS}
+    launches = {fn.__name__: fn.launches // UNTRACED_REQUESTS for fn in counters}
     print("[profile] untraced requests (s): "
           + " ".join(f"{s:.3f}" for s in untraced)
           + f"; kernel wrapper launches per request {launches}")
@@ -249,7 +258,8 @@ def main() -> int:
     print_trace(*trace, untraced)
     twall, n, busy, _, by_cat, _ = trace
     print(json.dumps({
-        "device": smi, "untraced_s": untraced, "launches": launches,
+        "device": smi, "resnets": "fused" if fused else "composed",
+        "untraced_s": untraced, "launches": launches,
         "components_s": seconds, "component_calls": calls,
         "synchronised_request_s": wall, "traced_request_s": twall,
         "kernels": n, "busy_ms": busy / 1e3,
