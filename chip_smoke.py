@@ -14,8 +14,11 @@ non-zero, and nothing is caught:
      stated bound, the errors of planted faults that the bound must reject,
      and both times (CUDA events, after warm-up): flash attention at the
      UNet's, the VAE's and SAM's shapes (global and windowed encoder
-     layers), GroupNorm+SiLU, SAM's two-way transformer at the AMG's (256
-     prompts, 6 tokens) and the click predictor's (1 prompt, 21 tokens)
+     layers), each also beside its bound (least time for the same work)
+     and PyTorch's scaled_dot_product_attention at the same shape and
+     scale, with the SDPA backend that ran named at the UNet's 64x64 self
+     and the VAE's shapes, GroupNorm+SiLU, SAM's two-way transformer at
+     the AMG's (256 prompts, 6 tokens) and the click predictor's (1 prompt, 21 tokens)
      shapes, SAM's upscale + hypernetwork at 256 prompts, and the fused
      resnet block at five UNet and VAE shapes, also timed against the
      composed block (cuDNN convs + the GroupNorm kernel);
@@ -124,7 +127,8 @@ GN_SHAPES = [
 ATTN_F32_BOUND = 1e-4
 ATTN_BF16_REL_BOUND = 2.0 ** -6
 GN_BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 6.25e-2}
-KEY_TILE = 64          # keys per tile in csrc/flash_attention.cu (kBlockM)
+# the shapes at which phase 2 names the SDPA backend that ran
+SDPA_BACKEND_SHAPES = ("unet 64x64 self", "vae mid 64x64")
 HEADLINE = {"flash_attention": "unet 64x64 self",
             "group_norm_silu": "vae decoder 512x512x256",
             "sam_twoway": "amg batch", "sam_upscale_hyper": "amg batch",
@@ -214,6 +218,15 @@ def attention_bound(dtype, want) -> float:
     return ATTN_F32_BOUND
 
 
+def key_tile(dqk: int, dv: int) -> int:
+    """Keys per tile of csrc/flash_attention.cu's bf16 kernels at these
+    depths (dispatch_bf16, by_depth): 32 in the wide kernel (Dv > 160) and
+    where Dv <= 128 meets Dqk > 128, else 64."""
+    def pad(d):
+        return -(-d // 16) * 16
+    return 32 if pad(dv) > 160 or (pad(dv) <= 128 and pad(dqk) > 128) else 64
+
+
 def attention_faults(q, k, v, want, scale) -> dict:
     """Max errors against `want` of two planted faults, made with the plain
     twin: the last key tile dropped (the last half of the keys when one tile
@@ -221,12 +234,49 @@ def attention_faults(q, k, v, want, scale) -> dict:
     scaled by 1.05."""
     from editanything_tpu_torch.core.flash_attention import \
         flash_attention_reference as plain
-    m = k.shape[2]
-    keep = (m - 1) // KEY_TILE * KEY_TILE if m > KEY_TILE else m // 2
+    m, tile = k.shape[2], key_tile(q.shape[-1], v.shape[-1])
+    keep = (m - 1) // tile * tile if m > tile else m // 2
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     return {"last key tile dropped": max_err(
                 plain(q, k[:, :, :keep], v[:, :, :keep], scale=scale), want),
             "logits x1.05": max_err(plain(q, k, v, scale=1.05 * scale), want)}
+
+
+def sdpa_call(q, k, v, scale):
+    """PyTorch's fused attention at the kernel's scale: the yardstick of
+    kernel B (``library_ms``), timed here and called nowhere in the port."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, scale=scale)
+
+
+def print_sdpa_backends(q, k, v, scale, reps: int) -> None:
+    """Which SDPA backend runs by default at this shape (the device kernels
+    torch.profiler records for one call), and each backend's time where it
+    takes the shape (under ``sdpa_kernel``; a backend that refuses the
+    shape raises RuntimeError, recorded as "refuses")."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+    sdpa_call(q, k, v, scale)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sdpa_call(q, k, v, scale)
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    print(f"[kernel]   SDPA's default ran: {names or 'no device events traced'}")
+    times = []
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with sdpa_kernel([backend]):
+                ms = cuda_ms(lambda: sdpa_call(q, k, v, scale), reps)
+            times.append(f"{name} {ms:.4f} ms")
+        except RuntimeError:
+            times.append(f"{name} refuses")
+    print(f"[kernel]   SDPA by backend: {', '.join(times)}")
 
 
 def group_norm_faults(x, w, b, eps, silu, want) -> dict:
@@ -311,30 +361,29 @@ def phase_kernels():
             ms = cuda_ms(lambda: FA.flash_attention(q, k, v, scale=scale), reps)
             plain = cuda_ms(lambda: FA.flash_attention_reference(
                 q, k, v, scale=scale), reps)
+            # the library's yardstick, which the port never calls
+            sdpa = cuda_ms(lambda: sdpa_call(q, k, v, scale), reps)
+            least, by = bound_ms(*attention_work(b, h, n, m, dqk, dv,
+                                                 q.element_size()),
+                                 PEAK_BF16 if dtype == torch.bfloat16
+                                 else PEAK_FP32)
             print(f"[kernel] flash_attention {tag} {label} "
                   f"{(b, h, n, m, dqk, dv)} scale={scale}: max_abs_err {err:.3e} <= "
                   f"{bound:.3e} (max|out| {want.float().abs().max().item():.3e}); "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
+                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{least:.4f} ms ({by}), SDPA {sdpa:.4f} ms")
             what = f"flash_attention {tag} {label}"
             check_faults(faults, bound, what)
             check(err <= bound, f"{what}: {err} > {bound}")
+            if dtype == torch.bfloat16 and label in SDPA_BACKEND_SHAPES:
+                print_sdpa_backends(q, k, v, scale, reps)
             if dtype == torch.bfloat16 and label.startswith("sam"):
                 headline[f"flash_attention {label}"] = (err, ms, plain, label)
-            if dtype == torch.bfloat16 and label == "vae mid 64x64":
-                sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v), reps)
-                print(f"[kernel]   F.scaled_dot_product_attention at the same "
-                      f"shape: {sdpa:.4f} ms")
             if dtype == torch.bfloat16 and label == HEADLINE["flash_attention"]:
                 headline["flash_attention"] = (err, ms, plain, label)
                 headline["flash_attention work"] = attention_work(
                     b, h, n, m, dqk, dv)
-                # the library's yardstick, which the port never calls
-                sdpa = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v), reps)
                 headline["flash_attention library"] = sdpa
-                print(f"[kernel]   F.scaled_dot_product_attention at the same "
-                      f"shape: {sdpa:.4f} ms")
             del q, k, v, got, want
         for label, shape, eps, silu in GN_SHAPES:
             c = shape[1]

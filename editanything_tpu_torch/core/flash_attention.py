@@ -87,9 +87,10 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None):
     (B, H, M, Dv) -> (B, H, N, Dv); q/k may be deeper than v.
 
     CUDA tensors launch the kernel (one launch, counted in
-    ``flash_attention.launches``); CPU tensors take the plain twin. The
-    result is a (B, H, N, Dv) view of a (B, N, H, Dv) buffer, so merging the
-    heads back costs no copy."""
+    ``flash_attention.launches``; bf16 takes Dv <= 512 and raises beyond,
+    Dv > 160 going to the kernel's wide path); CPU tensors take the plain
+    twin. The result is a (B, H, N, Dv) view of a (B, N, H, Dv) buffer, so
+    merging the heads back costs no copy."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":

@@ -2,8 +2,9 @@
 // m16n8k16 fragment code and warp reductions (flash_attention.cu,
 // sam_twoway.cu, sam_upscale.cu), and for the SAM mask-decoder kernels
 // storage-dtype conversions, block-wide tile copies into shared memory
-// (cp.async), and one warp's 16-row matrix product in the fragment layout
-// of mma.sync, with an exact fp32 twin in the same layout.
+// (cp.async; flash_attention.cu's ring uses the zero-filling form), and
+// one warp's 16-row matrix product in the fragment layout of mma.sync,
+// with an exact fp32 twin in the same layout.
 //
 // warp_mm's output layout, for lane = threadIdx.x % 32, g = lane / 4,
 // tig = lane % 4: c[t][0], c[t][1] hold row g, columns t * 8 + 2 * tig and
@@ -70,6 +71,14 @@ __device__ __forceinline__ float warp_sum(float x) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+// the src-size form: copies 16 bytes if valid, else writes 16 zero bytes to
+// shared memory and reads nothing (src must still be a global address)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(s), "l"(src), "r"(valid ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

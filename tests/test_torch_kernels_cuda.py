@@ -33,8 +33,10 @@ from editanything_tpu_torch.models.sam import SAMConfig
 from editanything_tpu_torch.pipelines.bundle import random_sam
 
 # (n, m, dqk, dv, scale): those of tests/test_torch_kernels.py, plus a
-# depth that rules out 16-byte loads (36) and an output depth split into a
-# full and a partial 128-column chunk (176)
+# depth that rules out 16-byte loads (36), an output depth wider than 160
+# that takes the wide kernel with a partly used warp (176), key loops longer
+# than the ring with a ragged last tile (320 and 1030 keys) and a query count
+# that leaves most warps of the 256-row block past N (100)
 ATTN_CASES = [
     (128, 128, 40, 40, None),
     (256, 77, 80, 80, None),
@@ -45,7 +47,13 @@ ATTN_CASES = [
     (80, 77, 176, 176, None),
     (196, 196, 108, 80, 1.0),     # SAM's windowed encoder layers, unpadded
     (196, 196, 112, 80, 1.0),     # and padded to 16-byte rows, as the model
+    (256, 320, 40, 40, None),
+    (200, 1030, 80, 80, None),
+    (100, 150, 208, 80, 1.0),
 ]
+# (batch, n, m): the VAE's single 512-deep head through the wide kernel, at
+# batch 1 (encoder) and 2 (decoder), ragged and whole tiles
+WIDE_CASES = [(1, 100, 130), (2, 100, 130), (1, 64, 64), (2, 64, 64)]
 GN_CASES = [(1e-5, True), (1e-5, False), (1e-6, True), (1e-6, False)]
 SAM_F32_TOL = 1e-4
 TWOWAY_BF16_REL = 2.0 ** -5      # chip_smoke.py TWOWAY_BF16_REL_BOUND
@@ -90,6 +98,20 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype,
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + 1
     want = tfa.flash_attention_reference(q, k, v, scale=scale)
+    err, bound = _attention_err_and_bound(got, want)
+    assert err <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,n,m", WIDE_CASES)
+def test_flash_attention_wide_head_matches_plain(cuda_device, dtype, batch,
+                                                 n, m):
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(4, batch, 1, n, m, 512, 512))
+    got = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_reference(q, k, v)
     err, bound = _attention_err_and_bound(got, want)
     assert err <= bound
 
