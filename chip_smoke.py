@@ -437,16 +437,25 @@ def twoway_errors(got, want):
             max(rel_rms(g, w) for g, w in zip(got, want)))
 
 
+# planted faults of kernel D that both of its bf16 bounds must reject, each
+# alone: layer 0's token->image keys are computed once for all prompts, so
+# a hoist that lost pe would pass a check of the relative RMS alone
+TWOWAY_FAULTS_BOTH_BOUNDS = ("layer 0 keys without pe",)
+
+
 def twoway_faults(packed, src, pe, tokens, want) -> dict:
-    """twoway_errors against the twin's (queries, keys) of three planted
+    """twoway_errors against the twin's (queries, keys) of four planted
     faults, made with the plain twin: layer 0's self-attention with a
     residual instead of the replacement; the pad tokens (zeros up to the
     Pallas kernel's multiple of 8) attended as if they were tokens; the
     logits of every token<->image attention x1.05 (their q projections
-    scaled)."""
+    scaled); layer 0's token->image keys projected from the image rows
+    without pe."""
     from editanything_tpu_torch.core import kernels as K
     faults = {"layer 0 residual": twoway_errors(K.sam_twoway_reference(
         packed, src, pe, tokens, first_layer_replaces=False), want)}
+    faults["layer 0 keys without pe"] = twoway_errors(K.sam_twoway_reference(
+        packed, src, pe, tokens, first_keys_with_pe=False), want)
     b, t, d = tokens.shape
     padded = torch.cat([tokens, tokens.new_zeros(b, -(-t // 8) * 8 - t, d)], 1)
     q, k = K.sam_twoway_reference(packed, src, pe, padded)
@@ -515,6 +524,10 @@ def phase_sam_kernels(headline: dict):
                 check(e > bound or r > rms_bound,
                       f"{what}: the bounds would pass a planted fault ({name}: "
                       f"{e:.3e} / {r:.3e})")
+                if name in TWOWAY_FAULTS_BOTH_BOUNDS:
+                    check(e > bound and (r > rms_bound or dtype == torch.float32),
+                          f"{what}: a bound would pass a planted fault alone "
+                          f"({name}: {e:.3e} / {r:.3e})")
             check(err <= bound and rms <= rms_bound,
                   f"{what}: {err} > {bound} or {rms} > {rms_bound}")
             if dtype == torch.bfloat16 and label == HEADLINE["sam_twoway"]:
@@ -734,6 +747,10 @@ def phase_resnet_kernel(headline: dict):
                 check(e > bound or r > rms_bound,
                       f"{what}: the bounds would pass a planted fault ({name}: "
                       f"{e:.3e} / {r:.3e})")
+                if name in TWOWAY_FAULTS_BOTH_BOUNDS:
+                    check(e > bound and (r > rms_bound or dtype == torch.float32),
+                          f"{what}: a bound would pass a planted fault alone "
+                          f"({name}: {e:.3e} / {r:.3e})")
             check(err <= bound and rms <= rms_bound,
                   f"{what}: {err} > {bound} or {rms} > {rms_bound}")
             if bf16 and label == HEADLINE["resnet_fused"]:

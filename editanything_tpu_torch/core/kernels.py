@@ -186,7 +186,21 @@ TWOWAY_WIDTH = 256          # SAM's decoder widths, the same in every variant
 TWOWAY_HEADS = 8
 TWOWAY_MAX_TOKENS = 24      # 5 output tokens + 16 point slots + 2 box corners
 TWOWAY_MAX_LAYERS = 4       # csrc/sam_twoway.cu kMaxLayers
-TWOWAY_ROW_TILE = 64        # image rows per block of the bf16 row kernel
+TWOWAY_ROW_TILE = 128       # image rows per block of the bf16 row kernel
+TWOWAY_FILL_BLOCKS = 132    # row blocks that give each SM of an H100 one
+
+
+def twoway_row_tile(b: int, m: int, dtype) -> int:
+    """Image rows per block of kernel D's row kernels, as
+    csrc/sam_twoway.cu row_tile chooses them: in bf16 TWOWAY_ROW_TILE where
+    the b prompts' tiles of that size fill the card (the AMG's batches),
+    else half of it (the click's one prompt, small images); 32 in fp32. The
+    twin merges its token->image partials over the same tiles."""
+    if dtype != torch.bfloat16:
+        return 32
+    if m % TWOWAY_ROW_TILE == 0 and b * (m // TWOWAY_ROW_TILE) >= TWOWAY_FILL_BLOCKS:
+        return TWOWAY_ROW_TILE
+    return TWOWAY_ROW_TILE // 2
 
 
 def _twoway_names(n_layers: int):
@@ -266,7 +280,8 @@ def pack_twoway(transformer, *, heads: int = TWOWAY_HEADS,
 
 
 def sam_twoway_reference(packed: TwoWayPacked, src1, pe, tokens, *,
-                         first_layer_replaces: bool = True):
+                         first_layer_replaces: bool = True,
+                         first_keys_with_pe: bool = True):
     """Plain twin of kernel D: SAM's two-way transformer for B prompts that
     share one image input.
 
@@ -277,13 +292,16 @@ def sam_twoway_reference(packed: TwoWayPacked, src1, pe, tokens, *,
     takes storage-dtype inputs with fp32 sums, attention probabilities are
     rounded to the storage dtype before the product with v, LayerNorms are
     fp32, the tokens stay fp32 and the keys are stored in the storage dtype
-    between layers. Token->image attention runs over tiles of
-    ``TWOWAY_ROW_TILE`` image rows as the kernel splits it: per tile the
-    exponentials are taken against the tile's maximum and rounded before the
-    product with v, then the tiles merge (flash-decoding). In fp32 the
-    rounding is exact and the result is plain softmax attention.
+    between layers. Token->image attention runs over the kernel's tiles of
+    image rows (``twoway_row_tile``): per tile the exponentials are taken
+    against the tile's maximum and rounded before the product with v, then
+    the tiles merge (flash-decoding). In fp32 the rounding is exact and the
+    result is plain softmax attention.
     ``first_layer_replaces=False`` gives layer 0's self-attention a residual
-    instead (a fault the chip checks must reject)."""
+    instead, and ``first_keys_with_pe=False`` projects layer 0's
+    token->image keys from the image rows without pe (faults the chip
+    checks must reject; the kernel computes those keys once for every
+    prompt)."""
     dt = src1.dtype
     b = tokens.shape[0]
     keys = src1.expand(b, -1, -1)
@@ -313,7 +331,8 @@ def sam_twoway_reference(packed: TwoWayPacked, src1, pe, tokens, *,
             p = torch.softmax(s, dim=-1).to(dt).float()
             o = torch.matmul(p, heads(v, m))
         else:
-            tile = TWOWAY_ROW_TILE if m % TWOWAY_ROW_TILE == 0 else m
+            tile = twoway_row_tile(b, m, dt)
+            tile = tile if m % tile == 0 else m
             st = s.unflatten(-1, (m // tile, tile))
             mt = st.amax(-1, keepdim=True)
             e = torch.exp(st - mt)
@@ -335,7 +354,8 @@ def sam_twoway_reference(packed: TwoWayPacked, src1, pe, tokens, *,
             q = q + attn(p + "self_attn", qpe, qpe, q)
         q = ln(q, p + "norm1")
         kpe = keys.float() + pe
-        q = ln(q + attn(p + "cross_attn_token_to_image", q + tok0, kpe, keys,
+        kin = kpe if l > 0 or first_keys_with_pe else keys.float()
+        q = ln(q + attn(p + "cross_attn_token_to_image", q + tok0, kin, keys,
                         tiled=True), p + "norm2")
         h = torch.relu(lin(q, p + "mlp.lin1"))
         q = ln(q + lin(h, p + "mlp.lin2"), p + "norm3")
@@ -346,19 +366,28 @@ def sam_twoway_reference(packed: TwoWayPacked, src1, pe, tokens, *,
     return ln(q, "norm_final_attn").to(dt), keys
 
 
+def bind_twoway(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a kernel D library (``ea_sam_twoway``)."""
+    ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    # src, src batch stride, pe, tokens, w, v, w offsets, n, v offsets, n,
+    # n_layers, keys_out, q_out, q_state, tokkv, tq, partials, B, M, T,
+    # dtype, stream
+    lib.ea_sam_twoway.argtypes = ([ptr, ll, ptr, ptr, ptr, ptr, ptr, i32,
+                                   ptr, i32, i32] + [ptr] * 6
+                                  + [i32] * 4 + [ptr])
+    lib.ea_sam_twoway.restype = i32
+    lib.ea_cuda_error_string.argtypes = [i32]
+    lib.ea_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def _sam_library(name: str) -> ctypes.CDLL:
     from editanything_tpu_torch.core.build import load_cuda_library
     lib = load_cuda_library(name)
-    ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "sam_twoway":
-        # src, src batch stride, pe, tokens, w, v, w offsets, n, v offsets, n,
-        # n_layers, keys_out, q_out, q_state, tokkv, tq, partials, B, M, T,
-        # dtype, stream
-        lib.ea_sam_twoway.argtypes = ([ptr, ll, ptr, ptr, ptr, ptr, ptr, i32,
-                                       ptr, i32, i32] + [ptr] * 6
-                                      + [i32] * 4 + [ptr])
-        lib.ea_sam_twoway.restype = i32
+        return bind_twoway(lib)
     else:
         # src, w1, b1, ln_w, ln_b, w2, b2, hyper, out, B, M, e, eps, dtype,
         # stream
@@ -393,9 +422,9 @@ def sam_twoway(packed: TwoWayPacked, src1, pe, tokens):
 
     src1 (1, M, 256) in the storage dtype, pe (M, 256) fp32, tokens
     (B, T, 256) fp32 with T <= 24. Returns (queries (B, T, 256), keys
-    (B, M, 256)) in the storage dtype. CUDA tensors launch kernel D (seven
-    launches per call, counted once in ``sam_twoway.launches``); CPU tensors
-    take the plain twin."""
+    (B, M, 256)) in the storage dtype. CUDA tensors launch kernel D (eight
+    launches per call for SAM's two layers, counted once in
+    ``sam_twoway.launches``); CPU tensors take the plain twin."""
     if src1.device.type == "cpu":
         return sam_twoway_reference(packed, src1, pe, tokens)
     if src1.device.type != "cuda":
@@ -413,10 +442,10 @@ def sam_twoway(packed: TwoWayPacked, src1, pe, tokens):
                          f"and fp32 tokens (B, T, 256); got "
                          f"{tuple(src1.shape)}, {tuple(pe.shape)} {pe.dtype}, "
                          f"{tuple(tokens.shape)} {tokens.dtype}")
-    if not 1 <= t <= TWOWAY_MAX_TOKENS or m % TWOWAY_ROW_TILE:
+    if not 1 <= t <= TWOWAY_MAX_TOKENS or m % (TWOWAY_ROW_TILE // 2):
         raise ValueError(f"sam_twoway takes 1..{TWOWAY_MAX_TOKENS} tokens and "
-                         f"a multiple of {TWOWAY_ROW_TILE} image rows; got "
-                         f"T={t}, M={m}")
+                         f"a multiple of {TWOWAY_ROW_TILE // 2} image rows; "
+                         f"got T={t}, M={m}")
     if (packed.heads != TWOWAY_HEADS or packed.n_layers > TWOWAY_MAX_LAYERS
             or packed.mats["layers.0.mlp.lin1"][1] != (2048, TWOWAY_WIDTH)):
         raise ValueError("sam_twoway's kernel takes SAM's decoder widths "
@@ -424,8 +453,24 @@ def sam_twoway(packed: TwoWayPacked, src1, pe, tokens):
     devs = {x.device for x in (src1, pe, tokens, packed.w, packed.v)}
     if len(devs) != 1:
         raise ValueError(f"sam_twoway: tensors on several devices {devs}")
-    src1, pe, tokens = src1.contiguous(), pe.contiguous(), tokens.contiguous()
-    rows = TWOWAY_ROW_TILE if dt == torch.bfloat16 else TWOWAY_ROW_TILE // 2
+    out = _twoway_launch(_sam_library("sam_twoway"), packed, src1.contiguous(),
+                         pe.contiguous(), tokens.contiguous())
+    sam_twoway.launches += 1
+    return out
+
+
+def _twoway_launch(lib, packed: TwoWayPacked, src1, pe, tokens, *,
+                   part_rows=None):
+    """Allocate kernel D's outputs and scratch and call ``ea_sam_twoway`` of
+    ``lib`` on the current stream (checked, contiguous CUDA inputs). Also
+    used by ``tools/bench_twoway.py`` to time a library built from another
+    source beside this one, whose row tiles may be smaller: ``part_rows``
+    sizes the partials' buffer for tiles of that many rows (default: this
+    kernel's)."""
+    b, t, d = tokens.shape
+    m = src1.shape[1]
+    dt = src1.dtype
+    rows = part_rows or twoway_row_tile(b, m, dt)
     dev = src1.device
     keys = torch.empty((b, m, d), dtype=dt, device=dev)
     q_out = torch.empty((b, t, d), dtype=dt, device=dev)
@@ -434,7 +479,6 @@ def sam_twoway(packed: TwoWayPacked, src1, pe, tokens):
     tq = torch.empty((b, t, d // 2), dtype=dt, device=dev)
     part = torch.empty((b, m // rows, t, TWOWAY_HEADS, 18),
                        dtype=torch.float32, device=dev)
-    lib = _sam_library("sam_twoway")
     w_off, v_off = _offsets(packed.mats), _offsets(packed.vecs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -445,7 +489,6 @@ def sam_twoway(packed: TwoWayPacked, src1, pe, tokens):
             q_out.data_ptr(), q_state.data_ptr(), tokkv.data_ptr(),
             tq.data_ptr(), part.data_ptr(), b, m, t, _DTYPE_CODES[dt], stream)
     _raise_on(err, lib, "sam_twoway")
-    sam_twoway.launches += 1
     return q_out, keys
 
 

@@ -1,5 +1,6 @@
 // Device helpers shared by the port's CUDA kernels: the bf16 mma.sync
-// m16n8k16 fragment code and warp reductions (flash_attention.cu,
+// m16n8k16 fragment code (ldmatrix loads, bf16 packing, the product) and
+// warp reductions (flash_attention.cu,
 // sam_twoway.cu, sam_upscale.cu), and for the SAM mask-decoder kernels
 // storage-dtype conversions, block-wide tile copies into shared memory
 // (cp.async; flash_attention.cu's ring uses the zero-filling form), and
@@ -24,6 +25,38 @@ constexpr int kMaxSmem = 232448;   // 227 KB, the most a block may use
 
 __host__ __device__ constexpr size_t align128(size_t x) {
   return (x + 127) & ~static_cast<size_t>(127);
+}
+
+// The dynamic shared memory a kernel has been granted, per device: function
+// attributes belong to a device's context, so a process that launches on
+// several cards opts in on each one. A device numbered kMaxDevices or above
+// is opted in before every launch.
+constexpr int kMaxDevices = 64;
+struct SmemGrant {
+  int bytes[kMaxDevices] = {};
+};
+
+// Let `kernel` take `smem` bytes of dynamic shared memory on the current
+// device, unless that device has granted as much already. most_shared: also
+// ask for the largest shared memory carve-out of the SM's L1, so that as
+// many blocks of that size fit as the SM can hold.
+template <typename Kernel>
+cudaError_t grant_smem(SmemGrant& grant, Kernel* kernel, size_t smem,
+                       bool most_shared = false) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const int want = static_cast<int>(smem);
+  const bool kept = dev >= 0 && dev < kMaxDevices;
+  if (kept && want <= grant.bytes[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           want);
+  if (e == cudaSuccess && most_shared) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  }
+  if (e == cudaSuccess && kept) grant.bytes[dev] = want;
+  return e;
 }
 
 // row padding in elements: spreads the rows of a warp's fragment loads over
@@ -123,6 +156,28 @@ __device__ void copy_tile(T* dst, int ldd, const T* src, long long lds,
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 address the rows of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],

@@ -103,33 +103,12 @@ struct Params {
 // bf16: mma.sync m16n8k16 (common.cuh) with ldmatrix fragment loads
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float fast_exp2(float x) {   // exp2(-inf) = 0
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 address the rows of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
 __device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
                                         const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
@@ -449,16 +428,12 @@ flash_bf16_kernel(Params p) {
 template <int MT, int DVT, int KB, int STAGES, bool QREG>
 cudaError_t launch_bf16(const Params& p, int batch, cudaStream_t stream) {
   using L = Bf16Layout<MT, DVT, KB, STAGES>;
-  static int smem_attr = 0;  // largest dynamic shared memory granted so far
+  static SmemGrant grant;  // largest dynamic shared memory granted, per device
   const size_t smem = L::total(p.dqk_pad + 8);
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  if (static_cast<int>(smem) > smem_attr) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bf16_kernel<MT, DVT, KB, STAGES, QREG>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    smem_attr = static_cast<int>(smem);
-  }
+  cudaError_t e =
+      grant_smem(grant, flash_bf16_kernel<MT, DVT, KB, STAGES, QREG>, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid((p.n + L::kBlockN - 1) / L::kBlockN, batch * p.heads);
   flash_bf16_kernel<MT, DVT, KB, STAGES, QREG>
       <<<grid, kWarps * 32, smem, stream>>>(p);
@@ -677,17 +652,12 @@ flash_bf16_wide_kernel(Params p) {
 }
 
 cudaError_t launch_bf16_wide(const Params& p, int batch, cudaStream_t stream) {
-  static int smem_attr = 0;
+  static SmemGrant grant;
   if (p.dv_pad > kWideMaxDv) return cudaErrorInvalidValue;
   const size_t smem = wide_layout(p.dqk_pad, p.dv_pad).total;
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  if (static_cast<int>(smem) > smem_attr) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_bf16_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    smem_attr = static_cast<int>(smem);
-  }
+  cudaError_t e = grant_smem(grant, flash_bf16_wide_kernel, smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid((p.n + kWideRows - 1) / kWideRows, batch * p.heads);
   flash_bf16_wide_kernel<<<grid, kWideWarps * 32, smem, stream>>>(p);
   return cudaGetLastError();
@@ -860,7 +830,7 @@ __global__ void flash_f32_kernel(Params p, int bm) {
 cudaError_t launch_f32(const Params& p, int batch, cudaStream_t stream) {
   // (warps per block, keys per tile), widest first; the first that fits wins
   static const int configs[][2] = {{4, 64}, {4, 32}, {2, 32}, {1, 32}, {1, 16}};
-  static int smem_attr = 0;
+  static SmemGrant grant;
   int warps = 0, bm = 0;
   size_t smem = 0;
   for (const auto& c : configs) {
@@ -873,13 +843,8 @@ cudaError_t launch_f32(const Params& p, int batch, cudaStream_t stream) {
     }
   }
   if (warps == 0) return cudaErrorInvalidValue;
-  if (static_cast<int>(smem) > smem_attr) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    smem_attr = static_cast<int>(smem);
-  }
+  cudaError_t e = grant_smem(grant, flash_f32_kernel, smem);
+  if (e != cudaSuccess) return e;
   const int bn = warps * kRows;
   const dim3 grid((p.n + bn - 1) / bn, batch * p.heads);
   flash_f32_kernel<<<grid, warps * 32, smem, stream>>>(p, bm);

@@ -447,14 +447,11 @@ __global__ void __launch_bounds__(kThreads) store_kernel(const float* acc, T* ou
   }
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-      sms = 132;
-    }
+int sm_count() {   // of the current device
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return 132;
   }
   return sms;
 }
@@ -483,13 +480,9 @@ cudaError_t launch_conv(const ConvArgs& a, int batch, cudaStream_t stream) {
   static_assert(S::total <= static_cast<size_t>(kMaxSmem), "tile too big");
   const size_t smem = S::total + 2 * sizeof(float) * a.cin;
   if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
-  static bool attr = false;
-  if (!attr) {
-    cudaError_t e = cudaFuncSetAttribute(conv_kernel<T, TS, TO>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (e != cudaSuccess) return e;
-    attr = true;
-  }
+  static SmemGrant grant;
+  cudaError_t e = grant_smem(grant, conv_kernel<T, TS, TO>, kMaxSmem);
+  if (e != cudaSuccess) return e;
   const dim3 grid(pixel_tiles(a.height, a.width), (a.cout + kBN - 1) / kBN, batch * a.splits);
   conv_kernel<T, TS, TO><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();

@@ -210,14 +210,9 @@ template <typename T>
 cudaError_t run(const Params& p, int batch, cudaStream_t stream) {
   using S = UpSmem<T>;
   static_assert(S::total <= static_cast<size_t>(kMaxSmem), "tile too big");
-  static bool attr = false;
-  if (!attr) {
-    cudaError_t e = cudaFuncSetAttribute(
-        upscale_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(S::total));
-    if (e != cudaSuccess) return e;
-    attr = true;
-  }
+  static SmemGrant grant;
+  cudaError_t e = grant_smem(grant, upscale_kernel<T>, S::total);
+  if (e != cudaSuccess) return e;
   const dim3 grid((p.M + kR - 1) / kR, batch);
   upscale_kernel<T><<<grid, kWarps * 32, S::total, stream>>>(p);
   return cudaGetLastError();

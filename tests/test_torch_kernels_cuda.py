@@ -23,6 +23,8 @@ bf16 the bounds of chip_smoke.py (2^-6 of the twin's largest output and a
 relative RMS error of 2e-3).
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -164,10 +166,20 @@ def _sam_bound(got, want, rel):
     return err, SAM_F32_TOL
 
 
+# (prompts, image rows, tokens): the AMG's and the click's token counts and
+# 12 tokens (each size of the image->token attention: 8, 32 and 16 token
+# columns) over two bf16 row tiles of 64 rows; 7 prompts of 6 tokens, which
+# leave the token kernel (5 prompts of 6 tokens a block) a last group of
+# two, over 4 row tiles of 64 rows, and over 32 of 128 rows (enough blocks
+# to fill the card, so the 8-warp row kernel runs); fp32 tiles are 32 rows
+TWOWAY_CASES = [(3, 128, 6), (3, 128, 21), (2, 128, 12), (7, 256, 6),
+                (7, 4096, 6)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_tokens", [6, 21])
-def test_sam_twoway_kernel_matches_plain(cuda_device, dtype, n_tokens):
+@pytest.mark.parametrize("b,m,n_tokens", TWOWAY_CASES)
+def test_sam_twoway_kernel_matches_plain(cuda_device, dtype, b, m, n_tokens):
     g = torch.Generator(cuda_device).manual_seed(3)
     sam = random_sam(SMALL_SAM, device=cuda_device, dtype=dtype, generator=g)
     # q/k at twice the default range, as chip_smoke.py draws them
@@ -177,7 +189,6 @@ def test_sam_twoway_kernel_matches_plain(cuda_device, dtype, n_tokens):
                 mod.q_proj.weight.mul_(2.0)
                 mod.k_proj.weight.mul_(2.0)
     packed = sam.mask_decoder.pack_twoway()
-    b, m = 3, 128
     src = torch.randn(1, m, 256, generator=g, device=cuda_device).to(dtype)
     pe = torch.randn(m, 256, generator=g, device=cuda_device)
     tokens = torch.randn(b, n_tokens, 256, generator=g, device=cuda_device)
@@ -228,6 +239,52 @@ def test_sam_kernels_refuse_other_widths(cuda_device):
                              torch.zeros(32, device=cuda_device),
                              torch.zeros(32, 16, 2, 2, device=cuda_device),
                              torch.zeros(16, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_launch_on_every_device(cuda_device):
+    """Each CUDA kernel that opts in to more than 48 KB of shared memory
+    (flash attention, both SAM decoder kernels, the fused resnet block)
+    launches and matches its twin on every visible device: the opt-in is
+    kept per device, so a second card is opted in too."""
+    count = torch.cuda.device_count()
+    for i in range(count):
+        dev = torch.device("cuda", i)
+        q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+                   for a in _qkv(1, 2, 3, 128, 128, 40, 40))
+        err, bound = _attention_err_and_bound(
+            tfa.flash_attention(q, k, v), tfa.flash_attention_reference(q, k, v))
+        assert err <= bound, f"flash attention on {dev}"
+        g = torch.Generator(dev).manual_seed(3)
+        sam = random_sam(SMALL_SAM, device=dev, dtype=torch.bfloat16, generator=g)
+        src = torch.randn(1, 128, 256, generator=g, device=dev).bfloat16()
+        pe = torch.randn(128, 256, generator=g, device=dev)
+        tokens = torch.randn(2, 6, 256, generator=g, device=dev)
+        packed = sam.mask_decoder.pack_twoway()
+        for got, want in zip(tk.sam_twoway(packed, src, pe, tokens),
+                             tk.sam_twoway_reference(packed, src, pe, tokens)):
+            err, bound = _sam_bound(got, want, TWOWAY_BF16_REL)
+            assert err <= bound, f"sam_twoway on {dev}"
+        up = sam.mask_decoder.output_upscaling
+        args = (up[0].weight, up[0].bias, up[1].weight, up[1].bias,
+                up[3].weight, up[3].bias)
+        keys = torch.randn(2, 64, 256, generator=g, device=dev).bfloat16()
+        hyper = torch.randn(2, 4, 32, generator=g, device=dev).bfloat16()
+        err, bound = _sam_bound(tk.sam_upscale_hyper(keys, hyper, *args),
+                                tk.sam_upscale_hyper_reference(keys, hyper, *args),
+                                UPSCALE_BF16_REL)
+        assert err <= bound, f"sam_upscale_hyper on {dev}"
+        x, rargs = _resnet_inputs(dev, torch.bfloat16, 64, 32, True, 16, 16,
+                                  32, seed=6)
+        got = tk.resnet_fused(x, *rargs)
+        want = tk.resnet_fused_reference(x, *rargs)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= RESNET_BF16_REL * want.float().abs().max().item(), \
+            f"resnet_fused on {dev}"
+        torch.cuda.synchronize(dev)
+    if count < 2:
+        warnings.warn(f"{count} CUDA device visible: the kernels ran on device "
+                      f"0 only; a second device went untested")
 
 
 # the fused resnet block (kernel E): (cin, cout, time embedding, eps, H, W,

@@ -192,14 +192,18 @@ def test_mask_decoder_matches_jax(pair, shared):
 
 # --- the kernel twins --------------------------------------------------------
 
+@pytest.mark.parametrize("m", [64, 2 * TK.TWOWAY_ROW_TILE])
 @pytest.mark.parametrize("n_tokens", [6, 21])
-def test_twoway_twin_matches_pallas(pair, n_tokens):
+def test_twoway_twin_matches_pallas(pair, n_tokens, m):
     """T = 6 is the AMG's (5 output tokens + 1 point), T = 21 the click
     predictor's (5 + 16 padded point slots): padded to 8 and 24 inside the
-    Pallas kernel, with the pad tokens masked."""
+    Pallas kernel, with the pad tokens masked. M = 64 and 2 x
+    TWOWAY_ROW_TILE image rows hold the twin's merge of its token->image
+    partials over 2 and 8 row tiles (32 rows each in fp32) to the Pallas
+    kernel's softmax."""
     sam, tree = pair
     rng = np.random.default_rng(5)
-    b, m, d = 3, 64, 16
+    b, d = 3, 16
     src = rng.normal(0, 1, (1, m, d)).astype(np.float32)
     pe = rng.normal(0, 1, (1, m, d)).astype(np.float32)
     tokens = rng.normal(0, 1, (b, n_tokens, d)).astype(np.float32)

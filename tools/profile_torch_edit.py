@@ -48,6 +48,10 @@ CATEGORIES = [
     ("flash attention (csrc/flash_attention.cu)", ("flash_bf16", "flash_f32")),
     ("SAM two-way, row tiles (csrc/sam_twoway.cu)", ("twoway_rows",)),
     ("SAM two-way, tokens (csrc/sam_twoway.cu)", ("twoway_tokens",)),
+    ("SAM two-way, layer 0's shared K/V (csrc/sam_twoway.cu)",
+     ("twoway_shared_kv",)),
+    ("SAM two-way, layer 0's partials (csrc/sam_twoway.cu)",
+     ("twoway_shared_partials",)),
     ("SAM upscale + hypernetwork (csrc/sam_upscale.cu)", ("upscale_kernel",)),
     ("fused resnet (csrc/resnet_fused.cu)",
      ("::conv_kernel<", "::stats_kernel<", "::finalize_kernel<",
