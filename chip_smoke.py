@@ -7,7 +7,7 @@ Phases, each printed on lines of its own; any failure raises and exits
 non-zero, and nothing is caught:
   1. device: the card's name and power limit (nvidia-smi); builds every
      kernel from the checkout into build/ (one nvcc per CUDA source, all
-     four started together) and prints the build times and what ptxas says
+     five started together) and prints the build times and what ptxas says
      of each CUDA kernel (registers, spills);
   2. kernels: each kernel against its plain PyTorch twin at the main path's
      shapes, in bf16 and fp32 (TF32 off), with the max error against a
@@ -17,9 +17,13 @@ non-zero, and nothing is caught:
      layers), each also beside its bound (least time for the same work)
      and PyTorch's scaled_dot_product_attention at the same shape and
      scale, with the SDPA backend that ran named at the UNet's 64x64 self
-     and the VAE's shapes, GroupNorm+SiLU, SAM's two-way transformer at
+     and the VAE's shapes, GroupNorm+SiLU at UNet and VAE shapes that take
+     each of its launch plans (one CTA, a cluster, streamed through L2),
+     each with its plan, blocks per SM, bound, host time per call and, where
+     there is no SiLU, F.group_norm's time, SAM's two-way transformer at
      the AMG's (256 prompts, 6 tokens) and the click predictor's (1 prompt, 21 tokens)
-     shapes, SAM's upscale + hypernetwork at 256 prompts, and the fused
+     shapes, SAM's upscale + hypernetwork at the AMG's 256 prompts and the
+     click's 1, with its blocks per SM, and the fused
      resnet block at five UNet and VAE shapes, also timed against the
      composed block (cuDNN convs + the GroupNorm kernel);
   3. parity: the tiny edit of tests/test_torch_edit.py (with 64^2 inputs,
@@ -62,12 +66,13 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 FLASH_SOURCE = "editanything_tpu_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "editanything_tpu/core/flash_attention.py:64"
-GN_SOURCE = "editanything_tpu_torch/core/kernels.py"
+GN_SOURCE = "editanything_tpu_torch/csrc/group_norm.cu"
 GN_REPLACES = "editanything_tpu/core/kernels.py:37"
 TWOWAY_SOURCE = "editanything_tpu_torch/csrc/sam_twoway.cu"
 TWOWAY_REPLACES = "editanything_tpu/core/kernels.py:347"
@@ -75,7 +80,8 @@ UPSCALE_SOURCE = "editanything_tpu_torch/csrc/sam_upscale.cu"
 UPSCALE_REPLACES = "editanything_tpu/core/kernels.py:209"
 RESNET_SOURCE = "editanything_tpu_torch/csrc/resnet_fused.cu"
 RESNET_REPLACES = "editanything_tpu/core/kernels.py:604"
-CUDA_LIBRARIES = ("flash_attention", "sam_twoway", "sam_upscale", "resnet_fused")
+CUDA_LIBRARIES = ("flash_attention", "group_norm", "sam_twoway", "sam_upscale",
+                  "resnet_fused")
 # the card's published peaks (H100 SXM data sheet, dense): bf16 tensor
 # cores, fp32 outside them, device memory; a kernel's bound is the larger of
 # its operations over the peak and its bytes (each input read once, each
@@ -104,12 +110,20 @@ ATTN_SHAPES = [
     ("sam window 14x14", 25, 16, 196, 196, 112, 80, 1.0),
     ("sam window 14x14 unpadded", 25, 16, 196, 196, 108, 80, 1.0),
 ]
-# (label, NCHW shape, eps, SiLU)
+# (label, NCHW shape, eps, SiLU): in bf16 one CTA per slab at most UNet
+# shapes, clusters of 2 (UNet 64x64x960), 8 and 16 CTAs (the VAE) holding
+# their shares on chip, and the VAE decoder's 4 MB slabs held in part and
+# streamed through L2 (core/kernels.py::group_norm_plan)
 GN_SHAPES = [
     ("unet resnet 64x64x320", (4, 320, 64, 64), 1e-5, True),
     ("unet resnet 64x64x960", (4, 960, 64, 64), 1e-5, True),
+    ("unet resnet 32x32x1920", (4, 1920, 32, 32), 1e-5, True),
+    ("unet resnet 8x8x1280", (4, 1280, 8, 8), 1e-5, True),
     ("unet resnet 8x8x2560", (4, 2560, 8, 8), 1e-5, True),
     ("transformer norm 64x64x320", (4, 320, 64, 64), 1e-6, False),
+    ("transformer norm 8x8x1280", (4, 1280, 8, 8), 1e-6, False),
+    ("vae decoder 128x128x512", (2, 512, 128, 128), 1e-6, True),
+    ("vae decoder 512x512x128", (2, 128, 512, 512), 1e-6, True),
     ("vae encoder 512x512x128", (1, 128, 512, 512), 1e-6, True),
     ("vae decoder 512x512x256", (2, 256, 512, 512), 1e-6, True),
 ]
@@ -137,7 +151,7 @@ HEADLINE = {"flash_attention": "unet 64x64 self",
 # (the AMG's batch of 256 grid points with 5 + 1 tokens; the click
 # predictor's 1 prompt with 5 + 16 tokens) and prompts for the upscale
 TWOWAY_SHAPES = [("amg batch", 256, 6), ("click", 1, 21)]
-UPSCALE_SHAPES = [("amg batch", 256)]
+UPSCALE_SHAPES = [("amg batch", 256), ("click", 1)]
 # bounds of the SAM decoder kernels against their twins:
 #  fp32 1e-4: exact fp32 products summed in other orders (outputs ~1-10);
 #  two-way bf16, both of: max abs error 2^-5 * max|twin's output| (4-8 bf16
@@ -279,12 +293,70 @@ def print_sdpa_backends(q, k, v, scale, reps: int) -> None:
     print(f"[kernel]   SDPA by backend: {', '.join(times)}")
 
 
-def group_norm_faults(x, w, b, eps, silu, want) -> dict:
-    """Max error against `want` of a planted fault, made with the plain
-    twin: the variance 5% off."""
+def group_norm_inputs(g, dtype, shape):
+    """x with per-channel offsets and scales, as activations have them (so
+    that the shares of a slab differ), scale ~1 +- 0.3 and bias ~0.3, on
+    the card."""
+    c = shape[1]
+    x = (torch.randn(shape, generator=g, device="cuda")
+         * (0.5 + 2 * torch.rand(1, c, 1, 1, generator=g, device="cuda"))
+         + 2 * torch.randn(1, c, 1, 1, generator=g, device="cuda")).to(dtype)
+    w = (1 + 0.3 * torch.randn(c, generator=g, device="cuda")).to(dtype)
+    b = (0.3 * torch.randn(c, generator=g, device="cuda")).to(dtype)
+    return x, w, b
+
+
+def group_norm_faults(x, w, b, eps, silu, want, plan) -> dict:
+    """Max errors against `want` of planted faults, made with the plain
+    twin: the variance 5% off; and, where a cluster shares each slab
+    (plan.k > 1), rank 0's share of every slab (its first 1/k of whole
+    16-byte vectors, as csrc/group_norm.cu splits it) left out of the
+    statistics."""
     from editanything_tpu_torch.core.kernels import group_norm_silu_reference
-    return {"variance x1.05": max_err(group_norm_silu_reference(
+    faults = {"variance x1.05": max_err(group_norm_silu_reference(
         x, w / 1.05 ** 0.5, b, eps=eps, apply_silu=silu), want)}
+    if plan.k > 1:
+        n, c, h, wd = x.shape
+        vec = 16 // x.element_size() if (h * wd) % (16 // x.element_size()) == 0 else 1
+        xf = x.float().reshape(n, 32, -1)
+        first = xf.shape[-1] // vec // plan.k * vec
+        rest = xf[..., first:]
+        mean = rest.mean(-1, keepdim=True)
+        var = rest.var(-1, correction=0, keepdim=True)
+        y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+        y = y * w.float()[:, None, None] + b.float()[:, None, None]
+        if silu:
+            y = y * torch.sigmoid(y)
+        faults["rank 0's share left out of the statistics"] = max_err(
+            y.to(x.dtype), want)
+        del xf, rest, y
+    return faults
+
+
+def group_norm_occupancy(plan):
+    """(blocks per SM, clusters of plan.k at once) of kernel A's kernel for
+    this plan, bf16 (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+    from editanything_tpu_torch.core import kernels as K
+    out = (ctypes.c_int * 2)()
+    err = K._gn_library().ea_group_norm_occupancy(
+        plan.k, plan.threads, plan.smem_bytes, out)
+    check(err == 0, f"ea_group_norm_occupancy failed ({err})")
+    return out[0], out[1]
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host microseconds per call of fn (the launch path: checks, plan,
+    allocation, the launch), the device synchronised before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e6 * host / calls
 
 
 def check_faults(faults: dict, bound: float, what: str) -> None:
@@ -386,10 +458,8 @@ def phase_kernels():
                 headline["flash_attention library"] = sdpa
             del q, k, v, got, want
         for label, shape, eps, silu in GN_SHAPES:
-            c = shape[1]
-            x = (torch.randn(shape, generator=g, device="cuda") * 2 + 0.3).to(dtype)
-            w = (1 + 0.1 * torch.randn(c, generator=g, device="cuda")).to(dtype)
-            bias = (0.1 * torch.randn(c, generator=g, device="cuda")).to(dtype)
+            x, w, bias = group_norm_inputs(g, dtype, shape)
+            plan = K.group_norm_plan(*shape, 32, x.element_size())
             run = lambda: K.group_norm_silu(x, w, bias, eps=eps, apply_silu=silu)
             plain_fn = lambda: K.group_norm_silu_reference(
                 x, w, bias, eps=eps, apply_silu=silu)
@@ -397,18 +467,32 @@ def phase_kernels():
             torch.cuda.synchronize()
             err = max_err(got, want)
             bound = GN_BOUNDS[dtype]
-            faults = group_norm_faults(x, w, bias, eps, silu, want)
+            faults = group_norm_faults(x, w, bias, eps, silu, want, plan)
             ms, plain = cuda_ms(run, 10), cuda_ms(plain_fn, 10)
+            host = host_us(run)
+            least, by = bound_ms(*group_norm_work(shape, x.element_size()),
+                                 PEAK_FP32)
+            # the library's yardstick where one call computes the same
+            # function (no SiLU), which the port never calls
+            library = None if silu else cuda_ms(
+                lambda: F.group_norm(x, 32, w, bias, eps), 10)
+            blocks, clusters = group_norm_occupancy(plan)
             print(f"[kernel] group_norm_silu {tag} {label} {shape} eps={eps:g} "
                   f"silu={silu}: max_abs_err {err:.3e} <= {bound:g} "
                   f"(max|out| {want.float().abs().max().item():.3e}); "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
+                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                  f"{least:.4f} ms ({by})"
+                  + ("" if library is None else f", F.group_norm {library:.4f} ms")
+                  + f"; host {host:.1f} us per call; plan {plan.path}, "
+                  f"k {plan.k}, {plan.ctas} CTAs, {plan.share_bytes} B share, "
+                  f"{blocks} blocks per SM, {clusters} clusters at once")
             what = f"group_norm_silu {tag} {label}"
             check_faults(faults, bound, what)
             check(err <= bound, f"{what}: {err} > {bound}")
             if dtype == torch.bfloat16 and label == HEADLINE["group_norm_silu"]:
                 headline["group_norm_silu"] = (err, ms, plain, label)
                 headline["group_norm_silu work"] = group_norm_work(shape)
+                headline["group_norm_silu library"] = library
             del x, got, want
     torch.cuda.empty_cache()
     return headline
@@ -470,17 +554,48 @@ def twoway_faults(packed, src, pe, tokens, want) -> dict:
     return faults
 
 
+def upscale_grid() -> int:
+    """Blocks of kernel C's persistent bf16 grid on device 0: SMs x blocks
+    per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    return (torch.cuda.get_device_properties(0).multi_processor_count
+            * upscale_occupancy()[0])
+
+
+def upscale_occupancy():
+    """Blocks per SM of kernel C's bf16 persistent kernel and of its fp32
+    kernel."""
+    import ctypes
+    from editanything_tpu_torch.core import kernels as K
+    out = (ctypes.c_int * 2)()
+    err = K._sam_library("sam_upscale").ea_sam_upscale_occupancy(out)
+    check(err == 0, f"ea_sam_upscale_occupancy failed ({err})")
+    return out[0], out[1]
+
+
 def upscale_faults(src, hyper, args, want) -> dict:
-    """Max errors against `want` of two planted faults, made with the plain
+    """Max errors against `want` of planted faults, made with the plain
     twin: the taps of both transposed convs flipped (JAX conv_transpose's
-    convention, PARITY.md) and the LayerNorm2d variance 5% off."""
+    convention, PARITY.md); the LayerNorm2d variance 5% off; and, where a
+    block of the persistent grid takes three or more 64-pixel items, one
+    source tile read one ring slot stale: block 0's third item (item 2G of
+    a grid of G blocks) computed from the tile its ring slot held before,
+    item 0's."""
     from editanything_tpu_torch.core import kernels as K
     w1, b1, lnw, lnb, w2, b2 = args
-    return {
+    faults = {
         "taps flipped": max_err(K.sam_upscale_hyper_reference(
             src, hyper, w1.flip(2, 3), b1, lnw, lnb, w2.flip(2, 3), b2), want),
         "variance x1.05": max_err(K.sam_upscale_hyper_reference(
             src, hyper, w1, b1, lnw / 1.05 ** 0.5, lnb, w2, b2), want)}
+    tiles = -(-src.shape[1] // 64)
+    item = 2 * upscale_grid()
+    if item < src.shape[0] * tiles:
+        b, t = divmod(item, tiles)
+        stale = src.clone()
+        stale[b, 64 * t:64 * t + 64] = src[0, :64]
+        faults["a source tile one ring slot stale"] = max_err(
+            K.sam_upscale_hyper_reference(stale, hyper, *args), want)
+    return faults
 
 
 def phase_sam_kernels(headline: dict):
@@ -551,9 +666,14 @@ def phase_sam_kernels(headline: dict):
             faults = upscale_faults(keys, hyper, args, want)
             ms = cuda_ms(run, reps, warmup=1)
             plain_ms = cuda_ms(plain, reps, warmup=1)
+            least, by = bound_ms(*upscale_work(b, 64, keys.element_size()),
+                                 PEAK_BF16 if dtype == torch.bfloat16
+                                 else PEAK_FP32)
+            per_sm = upscale_occupancy()[0 if dtype == torch.bfloat16 else 1]
             print(f"[kernel] sam_upscale_hyper {tag} {label} (B={b}, 64x64 -> "
                   f"256x256): max_abs_err {err:.3e} <= {bound:.3e} (max|out| "
-                  f"{top:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                  f"{top:.3e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {least:.4f} ms ({by}); {per_sm} blocks per SM")
             what = f"sam_upscale_hyper {tag} {label}"
             check_faults(faults, bound, what)
             check(err <= bound, f"{what}: {err} > {bound}")
@@ -1214,7 +1334,7 @@ def main() -> int:
     rows = []
     for name, route, source, replaces in (
             ("flash_attention", "cuda", FLASH_SOURCE, FLASH_REPLACES),
-            ("group_norm_silu", "triton", GN_SOURCE, GN_REPLACES),
+            ("group_norm_silu", "cuda", GN_SOURCE, GN_REPLACES),
             ("sam_twoway", "cuda", TWOWAY_SOURCE, TWOWAY_REPLACES),
             ("sam_upscale_hyper", "cuda", UPSCALE_SOURCE, UPSCALE_REPLACES),
             ("resnet_fused", "cuda", RESNET_SOURCE, RESNET_REPLACES)):

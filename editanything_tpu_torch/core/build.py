@@ -1,12 +1,10 @@
 """Builds the port's kernels from the sources in the checkout, at first use.
 
-Everything goes into ``build/`` at the repository root (git-ignored):
-
-- CUDA C++ (``csrc/*.cu``): ``nvcc`` for ``sm_90a`` into a shared library
-  with a plain C interface, loaded with ctypes. The file name carries a hash
-  of the source and of the shared headers (``csrc/*.cuh``), so an edited
-  source is rebuilt and a stale library is never loaded.
-- Triton: its compile cache is pointed at ``build/triton``.
+Every kernel is CUDA C++ (``csrc/*.cu``): ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface in ``build/`` at the repository
+root (git-ignored), loaded with ctypes. The file name carries a hash of the
+source and of the shared headers (``csrc/*.cuh``), so an edited source is
+rebuilt and a stale library is never loaded.
 
 Nothing is downloaded, and nothing outside the checkout is written.
 """
@@ -91,7 +89,3 @@ def build_cuda_library(name: str) -> Path:
 def load_cuda_library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build_cuda_library(name)))
 
-
-def use_triton_cache() -> None:
-    """Point Triton's compile cache into build/ before triton is imported."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))

@@ -1,32 +1,20 @@
 """The port's kernels beside ``editanything_tpu/core/kernels.py``, each with
-its plain PyTorch twin: GroupNorm(+SiLU) in Triton (below), SAM's mask
-decoder kernels in CUDA C++ (``sam_twoway``, ``sam_upscale_hyper``) and the
-fused SD resnet block in CUDA C++ (``resnet_fused``); the CUDA sources, with
-the note on what bounds each, are ``csrc/sam_twoway.cu``,
-``csrc/sam_upscale.cu`` and ``csrc/resnet_fused.cu``.
+its plain PyTorch twin, all CUDA C++ bound through ctypes: GroupNorm(+SiLU)
+(``group_norm_silu``, ``csrc/group_norm.cu``), SAM's mask decoder kernels
+(``sam_twoway``, ``sam_upscale_hyper``; ``csrc/sam_twoway.cu``,
+``csrc/sam_upscale.cu``) and the fused SD resnet block (``resnet_fused``,
+``csrc/resnet_fused.cu``). Each source opens with a note on the TPU kernel it
+replaces, what bounds it on an H100 and what its design does about that.
 
 GroupNorm(+SiLU) replaces the Pallas TPU kernel ``editanything_tpu/core/kernels.py``
 (``_gn_silu_kernel``, :37; ``_gn_silu_pallas``, :121; ``group_norm_silu``,
 :825): GroupNorm with fp32 statistics per (image, group), then the
-per-channel affine, then an optional SiLU, in one output write.
-
-What bounds it on this card: it does a few flops per element and uses no
-tensor cores, so it is memory-bound; the least it can move is one read and
-one write of the activation. The largest calls (the VAE decoder at 512^2,
-(2, 256, 512, 512) in bf16, 256 MiB) leave only 32 groups per image, far
-fewer than the 132 SMs, and one block per group would leave the card idle.
-
-Design. In NCHW each (image, group) is one contiguous slab of
-C/G * H * W elements, cut into chunks of BLOCK elements:
-  pass 1 (``_gn_stats``): one program per (slab, chunk) writes the chunk's
-    mean and centred sum of squares (fp32) to a small scratch buffer;
-  pass 2 (``_gn_apply``): one program per (slab, chunk) merges its slab's
-    chunk statistics (Chan's pairwise formula, no E[x^2] - E[x]^2
-    cancellation), then normalises, applies scale/bias and SiLU in fp32 and
-    stores once in the input dtype.
-That is two reads and one write of the activation, with every SM busy at
-any size; the TPU kernel's VMEM size cap (``kernels.py:112-117``) has no
-counterpart. Triton is imported, and the kernels are built, at first use.
+per-channel affine, then an optional SiLU, in one output write. One launch
+per call reads the activation once: one CTA, or a cluster of CTAs, holds
+each (image, group) slab on chip; where 16 CTAs cannot hold it, each holds
+what fits and reads the rest twice, the second time from L2.
+``group_norm_plan`` is the launch plan, which the wrapper hands to the
+kernel.
 """
 
 from __future__ import annotations
@@ -35,21 +23,97 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
-BLOCK = 4096          # elements per chunk (power of two)
-NUM_WARPS = 8
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_GN_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# kernel A's launch plan (csrc/group_norm.cu): a CTA holds at most
+# GN_ONCHIP_MAX bytes of shared memory. Where one CTA per slab gives at
+# least GN_FILL_CTAS CTAs (about one per SM of an H100), k is the smallest
+# power of two that fits; elsewhere the smallest that gives shares of at
+# most GN_SHARE_PREF and GN_FILL_CTAS CTAs (not splitting shares below
+# GN_SHARE_MIN), up to GN_MAX_CLUSTER: on an H100 a cluster costs ~1.3 us a
+# rank, and more CTAs per SM pay that back only on the VAE's few large
+# slabs. A slab that GN_MAX_CLUSTER CTAs cannot hold is streamed: each CTA
+# holds what fits and reads the rest of its share twice
+GN_ONCHIP_MAX = 200 * 1024
+GN_SHARE_PREF = 64 * 1024
+GN_SHARE_MIN = 8 * 1024
+GN_FILL_CTAS = 128
+GN_MAX_CLUSTER = 16
+GN_MAX_TABLE = 4096          # channels of (scale, bias) a CTA's table holds
+
+
+class GroupNormPlan(NamedTuple):
+    """How kernel A takes one call: ``path`` "single" (one CTA per slab),
+    "cluster" (k CTAs per slab, each holding its share on chip) or "stream"
+    (clusters of k = 16 whose CTAs hold ``held_bytes`` of their share on
+    chip and read the rest twice, the second time from L2); ``ctas`` in the
+    grid of ``threads``-thread CTAs; ``share_bytes``, the part of a slab
+    each CTA owns; ``smem_bytes``, the dynamic shared memory of each CTA:
+    the part held, then the (scale, bias) table of the channels the share
+    touches."""
+    path: str
+    k: int
+    ctas: int
+    share_bytes: int
+    held_bytes: int
+    smem_bytes: int
+    threads: int
+
+
+@functools.lru_cache(maxsize=None)
+def group_norm_plan(n: int, c: int, h: int, w: int, num_groups: int,
+                    itemsize: int) -> GroupNormPlan:
+    """Kernel A's launch plan for an (n, c, h, w) activation of `itemsize`
+    bytes per element in `num_groups` groups, as csrc/group_norm.cu takes
+    it: each CTA owns a contiguous share of whole 16-byte vectors (single
+    elements where H*W is no multiple of a vector) of its (image, group)
+    slab; k as the note on GN_FILL_CTAS says; a CTA still over
+    GN_ONCHIP_MAX at k = 16 streams what it cannot hold."""
+    vec = 16 // itemsize
+    if (h * w) % vec:
+        vec = 1
+    cpg = c // num_groups
+    slab = cpg * h * w
+    slabs = n * num_groups
+
+    def share(k):                       # bytes
+        return -(-(slab // vec) // k) * vec * itemsize
+
+    def table(k):                       # channels the share can touch
+        t = min(cpg, -(-share(k) // itemsize // (h * w)) + 1)
+        return t if t <= GN_MAX_TABLE else 0
+
+    def smem(k, held):
+        return -(-held // 16) * 16 + 8 * table(k)
+
+    k = 1
+    if slabs >= GN_FILL_CTAS:
+        while k < GN_MAX_CLUSTER and smem(k, share(k)) > GN_ONCHIP_MAX:
+            k *= 2
+    else:
+        while k < GN_MAX_CLUSTER and (
+                share(k) > GN_SHARE_PREF
+                or (slabs * k < GN_FILL_CTAS and share(2 * k) >= GN_SHARE_MIN)):
+            k *= 2
+    held = share(k)
+    path = "single" if k == 1 else "cluster"
+    if smem(k, held) > GN_ONCHIP_MAX:
+        held = (GN_ONCHIP_MAX - 8 * table(k)) // 16 * 16
+        path = "stream"
+    threads = 512 if held >= 64 * 1024 or held < share(k) else 256
+    return GroupNormPlan(path, k, slabs * k, share(k), held, smem(k, held),
+                         threads)
 
 
 def group_norm_silu_reference(x, weight, bias, *, num_groups: int = 32,
                               eps: float = 1e-5, apply_silu: bool = True):
     """Plain twin of the kernel over NCHW: fp32 statistics and affine, SiLU
-    in fp32, one cast to x's dtype. With apply_silu=False it is also the VAE
-    attention's GroupNorm, which the JAX package leaves to XLA and no kernel
-    runs here either."""
+    in fp32, one cast to x's dtype."""
     n, c = x.shape[:2]
     xf = x.float().reshape(n, num_groups, -1)
     mean = xf.mean(dim=-1, keepdim=True)
@@ -62,82 +126,37 @@ def group_norm_silu_reference(x, weight, bias, *, num_groups: int = 32,
     return y.to(x.dtype)
 
 
-# Bound at first use by _triton_kernels(); the kernel bodies below name them
-# as module globals, which is where Triton's compiler looks them up.
-triton = None
-tl = None
-
-
-def _gn_stats(x_ptr, part_ptr, slab, n_chunks, BLOCK: tl.constexpr):
-    s = tl.program_id(0)
-    c = tl.program_id(1)
-    offs = c * BLOCK + tl.arange(0, BLOCK)
-    valid = offs < slab
-    x = tl.load(x_ptr + s.to(tl.int64) * slab + offs, mask=valid,
-                other=0.0).to(tl.float32)
-    cnt = tl.minimum(slab - c * BLOCK, BLOCK).to(tl.float32)
-    mean = tl.sum(x, axis=0) / cnt
-    d = tl.where(valid, x - mean, 0.0)
-    m2 = tl.sum(d * d, axis=0)
-    base = (s * n_chunks + c) * 2
-    tl.store(part_ptr + base, mean)
-    tl.store(part_ptr + base + 1, m2)
-
-
-def _gn_apply(x_ptr, y_ptr, w_ptr, b_ptr, part_ptr, slab, hw, cpg, groups,
-              n_chunks, eps, APPLY_SILU: tl.constexpr, BLOCK: tl.constexpr,
-              P_BLOCK: tl.constexpr):
-    s = tl.program_id(0)
-    c = tl.program_id(1)
-    # merge this slab's chunk statistics (Chan et al.)
-    p = tl.arange(0, P_BLOCK)
-    pv = p < n_chunks
-    means = tl.load(part_ptr + (s * n_chunks + p) * 2, mask=pv, other=0.0)
-    m2s = tl.load(part_ptr + (s * n_chunks + p) * 2 + 1, mask=pv, other=0.0)
-    cnts = tl.where(pv, tl.minimum(slab - p * BLOCK, BLOCK), 0).to(tl.float32)
-    total = slab * 1.0
-    mean = tl.sum(means * cnts, axis=0) / total
-    dm = means - mean
-    m2 = tl.sum(m2s + dm * dm * cnts, axis=0)
-    rstd = 1.0 / tl.sqrt(m2 / total + eps)
-
-    offs = c * BLOCK + tl.arange(0, BLOCK)
-    valid = offs < slab
-    base = s.to(tl.int64) * slab
-    x = tl.load(x_ptr + base + offs, mask=valid, other=0.0).to(tl.float32)
-    ch = (s % groups) * cpg + offs // hw
-    w = tl.load(w_ptr + ch, mask=valid, other=0.0).to(tl.float32)
-    b = tl.load(b_ptr + ch, mask=valid, other=0.0).to(tl.float32)
-    y = (x - mean) * rstd * w + b
-    if APPLY_SILU:
-        y = y * tl.sigmoid(y)
-    tl.store(y_ptr + base + offs, y.to(y_ptr.dtype.element_ty), mask=valid)
-
-
 @functools.cache
-def _triton_kernels():
-    global triton, tl
-    from editanything_tpu_torch.core.build import use_triton_cache
-    use_triton_cache()
-    import triton as triton_mod
-    import triton.language as tl_mod
-    triton, tl = triton_mod, tl_mod
-    return triton.jit(_gn_stats), triton.jit(_gn_apply)
+def _gn_library() -> ctypes.CDLL:
+    from editanything_tpu_torch.core.build import load_cuda_library
+    lib = load_cuda_library("group_norm")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # x, y, w, b, N, C, H, W, groups, eps, silu, dtype, wdtype, bdtype, k,
+    # held bytes, device, stream
+    lib.ea_group_norm_silu.argtypes = ([ptr] * 4 + [i32] * 5 + [ctypes.c_float]
+                                       + [i32] * 5 + [ctypes.c_longlong, i32,
+                                                      ptr])
+    lib.ea_group_norm_silu.restype = i32
+    lib.ea_group_norm_occupancy.argtypes = [i32, i32, ctypes.c_longlong,
+                                            ctypes.POINTER(i32)]
+    lib.ea_group_norm_occupancy.restype = i32
+    lib.ea_cuda_error_string.argtypes = [i32]
+    lib.ea_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def build() -> None:
-    """Import Triton and define the kernels (first use does this anyway);
-    each (dtype, SiLU, size class) specialisation compiles at its first
-    launch."""
-    _triton_kernels()
+    """Compile and load kernel A's library (first use does this)."""
+    _gn_library()
 
 
 def group_norm_silu(x, weight, bias, *, num_groups: int = 32,
                     eps: float = 1e-5, apply_silu: bool = True):
     """GroupNorm(+SiLU) over an NCHW tensor with (C,) scale and bias.
 
-    CUDA tensors launch the Triton kernel (counted once per call in
-    ``group_norm_silu.launches``); CPU tensors take the plain twin."""
+    CUDA tensors launch kernel A (one launch, counted in
+    ``group_norm_silu.launches``) with the plan of ``group_norm_plan``;
+    CPU tensors take the plain twin."""
     if x.device.type == "cpu":
         return group_norm_silu_reference(x, weight, bias, num_groups=num_groups,
                                          eps=eps, apply_silu=apply_silu)
@@ -148,27 +167,28 @@ def group_norm_silu(x, weight, bias, *, num_groups: int = 32,
     n, c, h, w = x.shape
     if c % num_groups:
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
-    if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
+    if x.dtype not in _GN_DTYPE_CODES:
         raise TypeError(f"group_norm_silu: unsupported dtype {x.dtype}")
     if weight.shape != (c,) or bias.shape != (c,):
         raise ValueError("scale and bias must be (C,)")
     if not (weight.device == bias.device == x.device):
         raise ValueError("x, scale and bias must be on one device")
-    stats, apply = _triton_kernels()
-    x = x.contiguous()
-    slab = (c // num_groups) * h * w
-    n_chunks = triton.cdiv(slab, BLOCK)
-    grid = (n * num_groups, n_chunks)
-    part = torch.empty((n * num_groups, n_chunks, 2), dtype=torch.float32,
-                       device=x.device)
+    if weight.dtype not in _GN_DTYPE_CODES or bias.dtype not in _GN_DTYPE_CODES:
+        raise TypeError(f"group_norm_silu: scale and bias must be fp32, bf16 "
+                        f"or fp16, got {weight.dtype} and {bias.dtype}")
+    plan = group_norm_plan(n, c, h, w, num_groups, x.element_size())
+    lib = _gn_library()
+    # held until the launch is queued: the pointers are into these tensors
+    x, weight, bias = x.contiguous(), weight.contiguous(), bias.contiguous()
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stats[grid](x, part, slab, n_chunks, BLOCK=BLOCK, num_warps=NUM_WARPS)
-        apply[grid](x, y, weight.contiguous(), bias.contiguous(), part, slab,
-                    h * w, c // num_groups, num_groups, n_chunks, float(eps),
-                    APPLY_SILU=bool(apply_silu), BLOCK=BLOCK,
-                    P_BLOCK=max(16, triton.next_power_of_2(n_chunks)),
-                    num_warps=NUM_WARPS)
+    dev = x.device.index
+    err = lib.ea_group_norm_silu(
+        x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(), n, c,
+        h, w, num_groups, eps, int(apply_silu), _GN_DTYPE_CODES[x.dtype],
+        _GN_DTYPE_CODES[weight.dtype], _GN_DTYPE_CODES[bias.dtype], plan.k,
+        plan.held_bytes, dev,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, lib, "group_norm_silu")
     group_norm_silu.launches += 1
     return y
 
@@ -181,7 +201,6 @@ group_norm_silu.launches = 0
 # hypernetwork products (kernel C), CUDA C++ through ctypes
 # ---------------------------------------------------------------------------
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TWOWAY_WIDTH = 256          # SAM's decoder widths, the same in every variant
 TWOWAY_HEADS = 8
 TWOWAY_MAX_TOKENS = 24      # 5 output tokens + 16 point slots + 2 box corners
@@ -385,18 +404,7 @@ def bind_twoway(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _sam_library(name: str) -> ctypes.CDLL:
     from editanything_tpu_torch.core.build import load_cuda_library
     lib = load_cuda_library(name)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if name == "sam_twoway":
-        return bind_twoway(lib)
-    else:
-        # src, w1, b1, ln_w, ln_b, w2, b2, hyper, out, B, M, e, eps, dtype,
-        # stream
-        lib.ea_sam_upscale.argtypes = ([ptr] * 9 + [i32] * 3
-                                       + [ctypes.c_float, i32, ptr])
-        lib.ea_sam_upscale.restype = i32
-    lib.ea_cuda_error_string.argtypes = [i32]
-    lib.ea_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return bind_twoway(lib) if name == "sam_twoway" else bind_upscale(lib)
 
 
 def build_sam() -> None:
@@ -550,6 +558,36 @@ def sam_upscale_hyper(src, hyper, w1, b1, ln_w, ln_b, w2, b2, *,
                          f"{tuple(hyper.shape)}")
     if hyper.device != src.device or w1.device != src.device:
         raise ValueError("sam_upscale_hyper: tensors on several devices")
+    out = _upscale_launch(_sam_library("sam_upscale"), src, hyper, w1, b1,
+                          ln_w, ln_b, w2, b2, eps)
+    sam_upscale_hyper.launches += 1
+    return out
+
+
+def bind_upscale(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a kernel C library (``ea_sam_upscale``)."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # src, w1, b1, ln_w, ln_b, w2, b2, hyper, out, B, M, e, eps, dtype,
+    # stream
+    lib.ea_sam_upscale.argtypes = ([ptr] * 9 + [i32] * 3
+                                   + [ctypes.c_float, i32, ptr])
+    lib.ea_sam_upscale.restype = i32
+    if hasattr(lib, "ea_sam_upscale_occupancy"):
+        lib.ea_sam_upscale_occupancy.argtypes = [ctypes.POINTER(i32)]
+        lib.ea_sam_upscale_occupancy.restype = i32
+    lib.ea_cuda_error_string.argtypes = [i32]
+    lib.ea_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _upscale_launch(lib, src, hyper, w1, b1, ln_w, ln_b, w2, b2, eps):
+    """Pack kernel C's weights, allocate its output and call
+    ``ea_sam_upscale`` of ``lib`` on the current stream (checked CUDA
+    inputs). Also used by ``tools/bench_upscale.py`` to time a library
+    built from another source beside this one."""
+    dt = src.dtype
+    b, npix, c = src.shape
+    e = math.isqrt(npix)
     # (tap, out, in) matrices: w1p[di*2+dj, o, i] = w1[i, o, di, dj];
     # w2p[(di2*2+dj2)*32 + o, i] = w2[i, o, di2, dj2]
     w1p = w1.to(dt).permute(2, 3, 1, 0).reshape(4, c // 4, c).contiguous()
@@ -558,7 +596,6 @@ def sam_upscale_hyper(src, hyper, w1, b1, ln_w, ln_b, w2, b2, *,
     b2p = b2.to(dt).float().repeat(4).contiguous()
     src, hyper = src.contiguous(), hyper.to(dt).contiguous()
     out = torch.empty((b, 4, 4 * e, 4 * e), dtype=dt, device=src.device)
-    lib = _sam_library("sam_upscale")
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         err = lib.ea_sam_upscale(
@@ -567,7 +604,6 @@ def sam_upscale_hyper(src, hyper, w1, b1, ln_w, ln_b, w2, b2, *,
             b2p.data_ptr(), hyper.data_ptr(), out.data_ptr(), b, npix, e,
             float(eps), _DTYPE_CODES[dt], stream)
     _raise_on(err, lib, "sam_upscale_hyper")
-    sam_upscale_hyper.launches += 1
     return out
 
 

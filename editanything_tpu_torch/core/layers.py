@@ -47,6 +47,14 @@ class GroupNorm(nn.Module):
                                        eps=self.eps, apply_silu=silu)
 
 
+def group_norm(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5):
+    """Plain GroupNorm over NCHW with fp32 statistics and affine, cast back
+    to x's dtype: the JAX package's ``layers.group_norm``, which it leaves
+    to XLA (the VAE attention's norm); no kernel runs it."""
+    return F.group_norm(x.float(), num_groups, weight.float(), bias.float(),
+                        eps).to(x.dtype)
+
+
 class LayerNorm(nn.LayerNorm):
     """nn.LayerNorm with fp32 statistics whatever the activation dtype."""
 

@@ -210,9 +210,8 @@ class VAEAttention(nn.Module):
 
     def forward(self, x):
         b, c, h, w = x.shape
-        hidden = K.group_norm_silu_reference(
-            x, self.group_norm.weight, self.group_norm.bias,
-            num_groups=self.num_groups, eps=1e-6, apply_silu=False)
+        hidden = L.group_norm(x, self.group_norm.weight, self.group_norm.bias,
+                              num_groups=self.num_groups, eps=1e-6)
         hidden = hidden.permute(0, 2, 3, 1).reshape(b, h * w, c)
         q = self.to_q(hidden)[:, None]
         k = self.to_k(hidden)[:, None]

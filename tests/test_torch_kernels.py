@@ -1,5 +1,7 @@
-"""The port's two kernels (editanything_tpu_torch.core) against the JAX
-package's Pallas kernels, which run here in interpret mode (conftest).
+"""The port's flash attention and GroupNorm(+SiLU) kernels
+(editanything_tpu_torch.core) against the JAX package's Pallas kernels,
+which run here in interpret mode (conftest), and kernel A's launch plan at
+every GroupNorm call of a full-width edit request.
 
 On the CPU the port's wrappers take their plain PyTorch twins, so these
 tests hold the twins' arithmetic against the Pallas kernels and check that
@@ -14,6 +16,10 @@ Tolerances (fp32 inputs, matmul precision "highest" on the JAX side):
 - GroupNorm 1e-5 absolute on outputs of magnitude <~4 (SiLU of them): the
   fp32 statistics are summed in different orders.
 """
+
+import functools
+import importlib.util
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -111,3 +117,83 @@ def test_masked_dispatch_uses_plain_attention():
     got = tl.attention(torch.from_numpy(q), torch.from_numpy(k),
                        torch.from_numpy(v), mask=torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), want, atol=ATTN_TOL, rtol=0)
+
+
+# GroupNorm calls of one composed 512^2 edit request (2 samples under CFG,
+# 30 steps): per step the UNet and two ControlNets at batch 4, then the VAE
+# decoder at batch 2 and the VAE encoder at batch 1 (the masked image)
+STEPS = 30
+GN_CALLS = {"unet": 61, "controlnet": 27, "vae decoder": 29, "vae encoder": 21}
+SMEM_PER_CTA = 232448           # 227 KB, the most a CTA of an H100 may use
+
+
+@functools.cache
+def _traced_group_norms():
+    """{model: Counter((shape, groups, eps, silu) -> calls)} of one forward
+    of the full-width SD1.5 UNet, a ControlNet and the VAE decoder and
+    encoder on the meta device (tools/bench_gn.py, which times kernel A at
+    these shapes on the GPU)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "bench_gn.py"
+    spec = importlib.util.spec_from_file_location("bench_gn", path)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    return bench.trace_group_norms()
+
+
+def test_edit_request_makes_3500_group_norm_calls():
+    calls = _traced_group_norms()
+    assert {m: sum(c.values()) for m, c in calls.items()} == GN_CALLS
+    per_request = (STEPS * (GN_CALLS["unet"] + 2 * GN_CALLS["controlnet"])
+                   + GN_CALLS["vae decoder"] + GN_CALLS["vae encoder"])
+    assert per_request == 3500
+    # the 18 UNet/ControlNet shapes (with and without SiLU)
+    denoise = set(calls["unet"]) | set(calls["controlnet"])
+    assert len(denoise) == 18
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_group_norm_plan_fits_every_traced_shape(itemsize):
+    """Every GroupNorm of the request gets a plan whose CTAs hold at most
+    227 KB in clusters of at most 16; every UNet/ControlNet shape is held on
+    chip, in bf16 by one CTA per slab or a cluster of 2; in bf16 only the VAE
+    decoder's 4 MB slabs (2, 256, 512, 512) are streamed, in part, through
+    L2."""
+    calls = _traced_group_norms()
+    streamed = set()
+    for model, counter in calls.items():
+        for (shape, groups, _eps, _silu) in counter:
+            plan = tk.group_norm_plan(*shape, groups, itemsize)
+            assert plan.smem_bytes <= SMEM_PER_CTA
+            assert plan.k in (1, 2, 4, 8, 16)
+            assert plan.ctas % plan.k == 0
+            slab = shape[1] // groups * shape[2] * shape[3] * itemsize
+            assert plan.share_bytes * plan.k >= slab
+            assert plan.ctas == shape[0] * groups * plan.k
+            assert plan.smem_bytes <= tk.GN_ONCHIP_MAX
+            if plan.path == "stream":
+                streamed.add(shape)
+                assert plan.k == 16 and plan.held_bytes < plan.share_bytes
+            else:
+                assert plan.held_bytes == plan.share_bytes <= plan.smem_bytes
+                assert (plan.path == "single") == (plan.k == 1)
+            if model in ("unet", "controlnet"):
+                assert plan.path != "stream", (shape, plan)
+                assert plan.k <= 2 or itemsize > 2, (shape, plan)
+    if itemsize == 2:
+        assert streamed == {(2, 256, 512, 512)}
+
+
+@pytest.mark.parametrize("shape,itemsize,want", [
+    ((4, 1280, 8, 8), 2, ("single", 1, 128, 5120)),
+    ((4, 320, 64, 64), 2, ("single", 1, 128, 81920)),
+    ((4, 960, 64, 64), 2, ("cluster", 2, 256, 122880)),
+    ((1, 512, 64, 64), 2, ("cluster", 4, 128, 32768)),
+    ((2, 512, 128, 128), 2, ("cluster", 8, 512, 65536)),
+    ((2, 256, 256, 256), 2, ("cluster", 16, 1024, 65536)),
+    ((1, 128, 512, 512), 2, ("cluster", 16, 512, 131072)),
+    ((2, 256, 512, 512), 2, ("stream", 16, 1024, 262144)),
+    ((1, 32, 7, 9), 4, ("single", 1, 32, 252)),
+])
+def test_group_norm_plan_paths(shape, itemsize, want):
+    plan = tk.group_norm_plan(*shape, 32, itemsize)
+    assert (plan.path, plan.k, plan.ctas, plan.share_bytes) == want

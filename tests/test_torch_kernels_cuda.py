@@ -13,7 +13,8 @@ Tolerances: fp32 1e-4 absolute (exact fp32 products, sums in other
 orders); bf16 attention 2^-6 of the twin's largest output, i.e. two bf16
 ulps of it (both sides keep fp32 sums and round the output once; P is
 rounded to bf16 unnormalised in the kernel and normalised in the twin);
-bf16 GroupNorm 6.25e-2, one bf16 ulp at outputs below 16. SAM's decoder
+bf16 GroupNorm 6.25e-2, one bf16 ulp at outputs below 16 (fp16 1e-2, one
+fp16 ulp there). SAM's decoder
 kernels (two-way transformer, upscale + hypernetwork) at SAM's published
 decoder widths with small batches: fp32 1e-4 absolute (exact fp32 products
 summed in other orders; outputs of magnitude ~1-10); bf16 the bounds of
@@ -138,6 +139,72 @@ def test_group_norm_silu_kernel_matches_plain(cuda_device, dtype, tol, eps,
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+def _group_norm_inputs(device, dtype, shape, seed):
+    """x with per-channel offsets and scales (so that the shares of a slab
+    differ), scale ~1 +- 0.3 and bias ~0.3."""
+    g = torch.Generator(device).manual_seed(seed)
+    c = shape[1]
+    x = (torch.randn(shape, generator=g, device=device)
+         * (0.5 + 2 * torch.rand(1, c, 1, 1, generator=g, device=device))
+         + 2 * torch.randn(1, c, 1, 1, generator=g, device=device)).to(dtype)
+    w = (1 + 0.3 * torch.randn(c, generator=g, device=device)).to(dtype)
+    b = (0.3 * torch.randn(c, generator=g, device=device)).to(dtype)
+    return x, w, b
+
+
+def _group_norm_check(x, w, b, tol, **kw):
+    before = tk.group_norm_silu.launches
+    got = tk.group_norm_silu(x, w, b, **kw)
+    torch.cuda.synchronize()
+    assert tk.group_norm_silu.launches == before + 1
+    want = tk.group_norm_silu_reference(x, w, b, **kw)
+    assert got.shape == x.shape and got.dtype == x.dtype
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+GN_TOLS = {torch.float32: 1e-4, torch.bfloat16: 6.25e-2, torch.float16: 1e-2}
+# (shape, dtype, plan path, k): one CTA per slab (the UNet's 8x8 level and
+# 64x64x320 in fp16), clusters of 2, 4, 8 and 16 (UNet 64x64x960, the
+# VAE's 64x64x512 at batch 1 and 128x128x512 at batch 2, the VAE encoder's
+# 2 MB slabs), and the slabs held in part and streamed through L2 (the VAE
+# decoder's 4 MB slabs in bf16; 4 MB of fp32, also with single-element
+# vectors, H*W odd)
+GN_PLAN_CASES = [
+    ((4, 1280, 8, 8), torch.bfloat16, "single", 1),
+    ((4, 320, 64, 64), torch.float16, "single", 1),
+    ((4, 960, 64, 64), torch.bfloat16, "cluster", 2),
+    ((1, 512, 64, 64), torch.bfloat16, "cluster", 4),
+    ((2, 512, 128, 128), torch.bfloat16, "cluster", 8),
+    ((1, 128, 512, 512), torch.bfloat16, "cluster", 16),
+    ((1, 128, 512, 512), torch.float32, "stream", 16),
+    ((2, 256, 512, 512), torch.bfloat16, "stream", 16),
+    ((1, 32, 1023, 1025), torch.float32, "stream", 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,path,k", GN_PLAN_CASES)
+def test_group_norm_silu_kernel_every_plan_path(cuda_device, shape, dtype,
+                                                path, k):
+    plan = tk.group_norm_plan(*shape, 32, torch.finfo(dtype).bits // 8)
+    assert (plan.path, plan.k) == (path, k)
+    x, w, b = _group_norm_inputs(cuda_device, dtype, shape, seed=1)
+    _group_norm_check(x, w, b, GN_TOLS[dtype], eps=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("eps,apply_silu", GN_CASES)
+def test_group_norm_silu_kernel_ragged_one_channel_groups(cuda_device, dtype,
+                                                          batch, eps,
+                                                          apply_silu):
+    """7x9 images (no 16-byte vectors) with one channel per group."""
+    x, w, b = _group_norm_inputs(cuda_device, dtype, (batch, 32, 7, 9), seed=2)
+    _group_norm_check(x, w, b, GN_TOLS[dtype], num_groups=32, eps=eps,
+                      apply_silu=apply_silu)
+
+
 @pytest.mark.cuda
 def test_flash_attention_kernel_reads_head_strided_views(cuda_device):
     """The models hand the kernel (B, N, H*D) projections viewed as
@@ -222,6 +289,33 @@ def test_sam_upscale_kernel_matches_plain(cuda_device, dtype, e):
     got = tk.sam_upscale_hyper(src, hyper, *args)
     torch.cuda.synchronize()
     assert tk.sam_upscale_hyper.launches == before + 1
+    want = tk.sam_upscale_hyper_reference(src, hyper, *args)
+    assert got.shape == (b, 4, 4 * e, 4 * e) and got.dtype == dtype
+    err, bound = _sam_bound(got, want, UPSCALE_BF16_REL)
+    assert err <= bound
+
+
+# (prompts, e): the AMG's 64x64 embedding at the click's batch of 1 and at
+# 3 prompts (192 work items of 64 pixels, more than one per block of the
+# persistent grid of an H100's 132 SMs), 37 prompts of 16x16 (148 items,
+# not a multiple of the grid) and an odd e whose one tile is ragged (7x7:
+# 8-byte stores)
+UPSCALE_CASES = [(1, 64), (3, 64), (37, 16), (5, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,e", UPSCALE_CASES)
+def test_sam_upscale_kernel_persistent_grid(cuda_device, dtype, b, e):
+    g = torch.Generator(cuda_device).manual_seed(5)
+    sam = random_sam(SMALL_SAM, device=cuda_device, dtype=dtype, generator=g)
+    up = sam.mask_decoder.output_upscaling
+    src = torch.randn(b, e * e, 256, generator=g, device=cuda_device).to(dtype)
+    hyper = torch.randn(b, 4, 32, generator=g, device=cuda_device).to(dtype)
+    args = (up[0].weight, up[0].bias, up[1].weight, up[1].bias, up[3].weight,
+            up[3].bias)
+    got = tk.sam_upscale_hyper(src, hyper, *args)
+    torch.cuda.synchronize()
     want = tk.sam_upscale_hyper_reference(src, hyper, *args)
     assert got.shape == (b, 4, 4 * e, 4 * e) and got.dtype == dtype
     err, bound = _sam_bound(got, want, UPSCALE_BF16_REL)

@@ -52,11 +52,12 @@ CATEGORIES = [
      ("twoway_shared_kv",)),
     ("SAM two-way, layer 0's partials (csrc/sam_twoway.cu)",
      ("twoway_shared_partials",)),
-    ("SAM upscale + hypernetwork (csrc/sam_upscale.cu)", ("upscale_kernel",)),
+    ("SAM upscale + hypernetwork (csrc/sam_upscale.cu)",
+     ("upscale_kernel", "upscale_persistent_kernel")),
     ("fused resnet (csrc/resnet_fused.cu)",
      ("::conv_kernel<", "::stats_kernel<", "::finalize_kernel<",
       "::store_kernel<")),
-    ("GroupNorm+SiLU (Triton)", ("_gn_stats", "_gn_apply")),
+    ("GroupNorm+SiLU (csrc/group_norm.cu)", ("::gn_kernel<",)),
     ("cuDNN layout NCHW->NHWC", ("nchwToNhwc",)),
     ("cuDNN layout NHWC->NCHW", ("nhwcToNchw",)),
     ("convolution", ("fprop", "convolve", "conv2d", "implicit_gemm")),
