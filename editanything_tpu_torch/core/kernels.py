@@ -3,8 +3,10 @@ its plain PyTorch twin, all CUDA C++ bound through ctypes: GroupNorm(+SiLU)
 (``group_norm_silu``, ``csrc/group_norm.cu``), SAM's mask decoder kernels
 (``sam_twoway``, ``sam_upscale_hyper``; ``csrc/sam_twoway.cu``,
 ``csrc/sam_upscale.cu``) and the fused SD resnet block (``resnet_fused``,
-``csrc/resnet_fused.cu``). Each source opens with a note on the TPU kernel it
-replaces, what bounds it on an H100 and what its design does about that.
+``csrc/resnet_fused.cu``; ``resnet_plan`` is its launch plan: channels-last
+implicit-GEMM convs over tap-major packed weights). Each source opens with
+a note on the TPU kernel it replaces, what bounds it on an H100 and what
+its design does about that.
 
 GroupNorm(+SiLU) replaces the Pallas TPU kernel ``editanything_tpu/core/kernels.py``
 (``_gn_silu_kernel``, :37; ``_gn_silu_pallas``, :121; ``group_norm_silu``,
@@ -27,6 +29,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GN_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -614,7 +617,155 @@ sam_upscale_hyper.launches = 0
 # The fused SD resnet block (kernel E), CUDA C++ through ctypes
 # ---------------------------------------------------------------------------
 
-RESNET_FAULTS = ("pad_silu_shift", "gn2_groups_shifted", "no_shortcut")
+RESNET_FAULTS = ("pad_silu_shift", "gn2_groups_shifted", "no_shortcut",
+                 "gn2_tile_dropped")
+# kernel E's launch plan (csrc/resnet_fused.cu): GEMM rows (output pixels,
+# the batch folded in) per tile, K elements per ring stage, the output
+# channel tiles it is built for (in order of preference, see
+# resnet_channel_tile), a split over K never leaves a CTA fewer than
+# RESNET_MIN_SPLIT_STEPS stages, and GN1's statistics take chunks of at
+# least RESNET_GN1_CHUNK elements and at most RESNET_GN1_MAX_CHUNKS chunks
+# of an (image, group) slab, each a multiple of 8
+RESNET_BM = 128
+RESNET_BK = 64
+RESNET_CHANNEL_TILES = (160, 128, 64)
+RESNET_MIN_SPLIT_STEPS = 8
+RESNET_GN1_CHUNK = 16384
+RESNET_GN1_MAX_CHUNKS = 16
+
+
+class ResnetPlan(NamedTuple):
+    """How kernel E takes one block: output channel tile ``bn``; ``mtiles``
+    x ``ntiles`` output tiles of RESNET_BM pixels x bn channels; channel
+    strides ``cp_in``/``cp_out`` of the channels-last activations (Cin and
+    Cout rounded up to 8); K stages of each conv and the CTAs each is split
+    over; ``slots`` (most images one M tile spans) and ``segs`` (most groups
+    one channel tile touches), the layout of GN2's partials;
+    ``gn1_chunks`` per (image, group) slab; ``launches``, device launches a
+    call (kernels and memsets)."""
+    bn: int
+    mtiles: int
+    ntiles: int
+    cp_in: int
+    cp_out: int
+    steps1: int
+    steps2: int
+    split1: int
+    split2: int
+    slots: int
+    segs: int
+    gn1_chunks: int
+    launches: int
+
+
+def resnet_channel_tile(cout: int) -> int:
+    """The output channel tile: the least padding, then the earlier of
+    RESNET_CHANNEL_TILES (320, 640, 1280 -> 160; 128, 256, 512, 96 -> 128;
+    32 -> 64). On an H100 the 160-wide tile ran the UNet's 32x32 and 16x16
+    blocks 12-26% faster than 128, where both fit exactly (PERF.md)."""
+    return min(RESNET_CHANNEL_TILES,
+               key=lambda bn: (-(-cout // bn) * bn - cout,
+                               RESNET_CHANNEL_TILES.index(bn)))
+
+
+@functools.lru_cache(maxsize=None)
+def resnet_plan(n: int, cin: int, cout: int, h: int, w: int,
+                num_groups: int, shortcut: bool, sms: int = 132) -> ResnetPlan:
+    """Kernel E's plan for x (n, cin, h, w) -> (n, cout, h, w) with a 1x1
+    shortcut or not, on a card of `sms` SMs: each conv is split over K only
+    where its output tiles are fewer than the SMs, into as many splits as
+    make about one CTA per SM, or two where the tiles are under a quarter
+    of the SMs (the weight-bound 8x8 blocks)."""
+    hw, m = h * w, n * h * w
+    bn = resnet_channel_tile(cout)
+    cp_in, cp_out = -(-cin // 8) * 8, -(-cout // 8) * 8
+    mtiles, ntiles = -(-m // RESNET_BM), -(-cout // bn)
+    kc_in, kc_out = -(-cp_in // RESNET_BK), -(-cp_out // RESNET_BK)
+    steps1 = 9 * kc_in
+    steps2 = 9 * kc_out + (kc_in if shortcut else 0)
+    tiles = mtiles * ntiles
+
+    def split(steps):
+        if tiles >= sms:
+            return 1
+        want = 2 * sms if 4 * tiles <= sms else sms
+        return max(1, min(-(-want // tiles), steps // RESNET_MIN_SPLIT_STEPS))
+
+    split1, split2 = split(steps1), split(steps2)
+    slots = max((min(m0 + RESNET_BM, m) - 1) // hw - m0 // hw + 1
+                for m0 in range(0, m, RESNET_BM))
+    cpg = cout // num_groups
+    segs = max((min(c0 + bn, cout) - 1) // cpg - c0 // cpg + 1
+               for c0 in range(0, cout, bn))
+    slab = cin // num_groups * hw
+    per = -(-slab // RESNET_GN1_MAX_CHUNKS)
+    chunk = max(RESNET_GN1_CHUNK, -(-per // 8) * 8)
+    gn1_chunks = -(-slab // chunk)
+    launches = 6 + (2 if split1 > 1 else 0) + (2 if split2 > 1 else 0)
+    return ResnetPlan(bn, mtiles, ntiles, cp_in, cp_out, steps1, steps2,
+                      split1, split2, slots, segs, gn1_chunks, launches)
+
+
+# kernel E's scratch buffers in the storage dtype and in fp32, in the order
+# of each of the two allocations (core/kernels.py::resnet_scratch)
+RESNET_SCRATCH_T = ("xn", "xs", "hn")
+RESNET_SCRATCH_F32 = ("h", "part1", "part2", "ss2", "acc")
+
+
+def resnet_scratch(n: int, cin: int, cout: int, h: int, w: int,
+                   num_groups: int, shortcut: bool,
+                   plan: ResnetPlan) -> Dict[str, int]:
+    """{buffer: elements} of kernel E's scratch: in the storage dtype the
+    channels-last xn, raw x (with a 1x1 shortcut) and hn; in fp32 h, GN1's
+    chunk partials, GN2's tile partials and its per-channel scale and
+    shift, and a split conv2's sums."""
+    m = n * h * w
+    return {"xn": m * plan.cp_in, "xs": m * plan.cp_in if shortcut else 0,
+            "hn": m * plan.cp_out, "h": m * plan.cp_out,
+            "part1": n * num_groups * plan.gn1_chunks * 3,
+            "part2": plan.mtiles * plan.slots * plan.ntiles * plan.segs * 3,
+            "ss2": n * cout * 2, "acc": m * cout if plan.split2 > 1 else 0}
+
+
+def _scratch_offsets(sizes: Dict[str, int],
+                     names) -> Tuple[Dict[str, int], int]:
+    """Element offsets of `names` packed one after another, each 16-byte
+    aligned (64 elements), and the total."""
+    offs, at = {}, 0
+    for name in names:
+        offs[name] = at
+        at += -(-sizes[name] // 64) * 64
+    return offs, at
+
+
+def pack_conv_weight(w, cp: int):
+    """(Cout, Cin, kh, kw) -> (Cout, kh, kw, cp), input channels zero-padded
+    to cp: the tap-major K order of kernel E's implicit GEMM (k = tap * cp +
+    c). A layout change, no arithmetic."""
+    out = w.detach().permute(0, 2, 3, 1)
+    if cp != w.shape[1]:
+        out = F.pad(out, (0, cp - w.shape[1]))
+    return out.contiguous()
+
+
+# packed weights per weight tensor, repacked when its storage, version,
+# device or dtype changes; an entry goes with its weight
+_PACKED = WeakIdKeyDictionary()
+
+
+def packed_conv_weight(w, cp: int):
+    """``pack_conv_weight(w, cp)``, cached per weight tensor: an in-place
+    change (which bumps ``w._version``) or a move is repacked on the next
+    call."""
+    # a move or cast changes the pointer; a tensor made under
+    # torch.inference_mode keeps no version counter
+    key = (0 if w.is_inference() else w._version, w.data_ptr(), cp)
+    hit = _PACKED.get(w)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    packed = pack_conv_weight(w, cp)
+    _PACKED[w] = (key, packed)
+    return packed
 
 
 def _group_stats(xf, num_groups, eps):
@@ -628,10 +779,52 @@ def _group_stats(xf, num_groups, eps):
     return mean[:, :, None, None], rstd[:, :, None, None]
 
 
+def _tiled_group_stats(hf, num_groups, eps, bm, bn, drop_tile=False):
+    """``_group_stats`` as kernel E takes GN2's: the NHWC rows (pixels, the
+    batch folded in) cut into tiles of bm and the channels into tiles of bn;
+    each tile's (count, mean, M2) per (image, group) segment, two passes;
+    merged per (image, group) by Chan's formula for many partials (mean =
+    sum(n_i mean_i) / n, M2 = sum(M2_i + n_i (mean_i - mean)^2)).
+    drop_tile leaves tile (0, 0)'s partials out of the merge."""
+    n, c, hh, ww = hf.shape
+    hw, m = hh * ww, n * hh * ww
+    cpg, ntiles = c // num_groups, -(-c // bn)
+    rows = hf.permute(0, 2, 3, 1).reshape(-1)
+    r = torch.arange(m, device=hf.device)
+    col = torch.arange(c, device=hf.device)
+    nck = ntiles * num_groups
+    key = (((r // bm) * n + r // hw)[:, None] * nck
+           + ((col // bn) * num_groups + col // cpg)[None, :]).reshape(-1)
+    size = -(-m // bm) * n * nck
+
+    def scatter(v):
+        return torch.zeros(size, device=hf.device).index_add_(0, key, v)
+    cnt = scatter(torch.ones_like(rows))
+    mean = scatter(rows) / cnt.clamp_min(1)
+    m2 = scatter((rows - mean[key]) ** 2)
+    part = torch.arange(size, device=hf.device)
+    if drop_tile:
+        keep = (part // (n * nck) != 0) | ((part % nck) // num_groups != 0)
+        cnt = cnt * keep
+    target = ((part // nck) % n) * num_groups + part % num_groups
+
+    def merge(v):
+        return torch.zeros(n * num_groups, device=hf.device).index_add_(
+            0, target, v)
+    total = merge(cnt)
+    mu = merge(cnt * mean) / total
+    var = merge(torch.where(cnt > 0, m2, 0.0)
+                + cnt * (mean - mu[target]) ** 2) / total
+    rstd = torch.rsqrt(var + eps)
+    mu = mu.reshape(n, num_groups).repeat_interleave(cpg, dim=1)
+    rstd = rstd.reshape(n, num_groups).repeat_interleave(cpg, dim=1)
+    return mu[:, :, None, None], rstd[:, :, None, None]
+
+
 def resnet_fused_reference(x, norm1_w, norm1_b, w1, b1, trow, norm2_w,
                            norm2_b, w2, b2, wsc=None, bsc=None, *,
                            num_groups: int = 32, eps: float = 1e-5,
-                           fault=None):
+                           fault=None, gn2_tiles=None):
     """Plain twin of kernel E over NCHW: GN1 -> SiLU -> conv3x3 -> + b1 +
     trow -> GN2 -> SiLU -> conv3x3 -> + b2 + shortcut (the 1x1 conv
     ``wsc``/``bsc``, or the identity when ``wsc`` is None). Weights in the
@@ -644,39 +837,30 @@ def resnet_fused_reference(x, norm1_w, norm1_b, w1, b1, trow, norm2_w,
     until one final rounding; the shortcut takes the raw x with fp32 sums.
     Zero padding comes after the normalisation.
 
+    ``gn2_tiles`` (bm, bn) takes GN2's statistics as the kernel does: per
+    tile of bm pixels x bn channels, merged by Chan's formula
+    (``_tiled_group_stats``); None takes them directly.
+
     ``fault`` plants one of ``RESNET_FAULTS`` (for the chip checks, which
     must reject each): "pad_silu_shift" pads before normalising, so taps
     outside the image see SiLU(shift) instead of 0; "gn2_groups_shifted"
     takes GN2's group statistics one channel further on; "no_shortcut" drops
-    the shortcut."""
+    the shortcut; "gn2_tile_dropped" leaves tile (0, 0)'s GN2 partials out
+    of the merge (the tiled route, with the plan's tiles unless
+    ``gn2_tiles`` names others)."""
     if fault is not None and fault not in RESNET_FAULTS:
         raise ValueError(f"unknown fault {fault!r}")
     dt = x.dtype
     xf = x.float()
     pad = 0 if fault == "pad_silu_shift" else 1
-
-    def norm_silu(v, weight, bias, shifted=False):
-        # GroupNorm as scale = gamma * rstd, shift = beta - mean * scale (the
-        # Pallas kernel's _rn_group_stats), then SiLU, rounded to dt
-        if shifted:
-            mean, rstd = _group_stats(v.roll(-1, dims=1), num_groups, eps)
-            mean, rstd = mean.roll(1, dims=1), rstd.roll(1, dims=1)
-        else:
-            mean, rstd = _group_stats(v, num_groups, eps)
-        scale = weight.to(dt).float()[:, None, None] * rstd
-        shift = bias.to(dt).float()[:, None, None] - mean * scale
-        if pad == 0:
-            v = F.pad(v, (1, 1, 1, 1))
-        y = v * scale + shift
-        return (y * torch.sigmoid(y)).to(dt).float()
-
-    h = F.conv2d(norm_silu(xf, norm1_w, norm1_b), w1.to(dt).float(),
-                 padding=pad)
-    if trow is None:
-        h = h + b1.to(dt).float()[:, None, None]
-    else:
-        h = h + (trow.to(dt).float() + b1.to(dt).float())[:, :, None, None]
-    hn = norm_silu(h, norm2_w, norm2_b, shifted=fault == "gn2_groups_shifted")
+    h, affine = _resnet_first_half(x, norm1_w, norm1_b, w1, b1, trow,
+                                   norm2_w, norm2_b, num_groups, eps, fault,
+                                   gn2_tiles)
+    scale, shift = affine
+    if pad == 0:
+        h = F.pad(h, (1, 1, 1, 1))
+    y = h * scale + shift
+    hn = (y * torch.sigmoid(y)).to(dt).float()
     out = F.conv2d(hn, w2.to(dt).float(), padding=pad) \
         + b2.to(dt).float()[:, None, None]
     if fault != "no_shortcut":
@@ -688,21 +872,79 @@ def resnet_fused_reference(x, norm1_w, norm1_b, w1, b1, trow, norm2_w,
     return out.to(dt)
 
 
-@functools.cache
-def _resnet_library() -> ctypes.CDLL:
-    from editanything_tpu_torch.core.build import load_cuda_library
-    lib = load_cuda_library("resnet_fused")
+def _resnet_first_half(x, norm1_w, norm1_b, w1, b1, trow, norm2_w, norm2_b,
+                       num_groups, eps, fault, gn2_tiles):
+    """The twin up to GN2: h = conv1(xn) + b1 + trow (fp32) and GN2's
+    per-channel (scale, shift), each (N, Cout, 1, 1)."""
+    dt = x.dtype
+    pad = 0 if fault == "pad_silu_shift" else 1
+    if fault == "gn2_tile_dropped" and gn2_tiles is None:
+        gn2_tiles = (RESNET_BM, resnet_channel_tile(w1.shape[0]))
+
+    def affine(v, weight, bias, shifted=False, tiles=None):
+        # GroupNorm as scale = gamma * rstd, shift = beta - mean * scale (the
+        # Pallas kernel's _rn_group_stats)
+        if shifted:
+            mean, rstd = _group_stats(v.roll(-1, dims=1), num_groups, eps)
+            mean, rstd = mean.roll(1, dims=1), rstd.roll(1, dims=1)
+        elif tiles is not None:
+            mean, rstd = _tiled_group_stats(
+                v, num_groups, eps, *tiles,
+                drop_tile=fault == "gn2_tile_dropped")
+        else:
+            mean, rstd = _group_stats(v, num_groups, eps)
+        scale = weight.to(dt).float()[:, None, None] * rstd
+        return scale, bias.to(dt).float()[:, None, None] - mean * scale
+
+    xf = x.float()
+    scale, shift = affine(xf, norm1_w, norm1_b)
+    if pad == 0:
+        xf = F.pad(xf, (1, 1, 1, 1))
+    y = xf * scale + shift
+    xn = (y * torch.sigmoid(y)).to(dt).float()     # SiLU, rounded to dt
+    h = F.conv2d(xn, w1.to(dt).float(), padding=pad)
+    if trow is None:
+        h = h + b1.to(dt).float()[:, None, None]
+    else:
+        h = h + (trow.to(dt).float() + b1.to(dt).float())[:, :, None, None]
+    return h, affine(h, norm2_w, norm2_b,
+                     shifted=fault == "gn2_groups_shifted", tiles=gn2_tiles)
+
+
+def resnet_gn2_affine_reference(x, norm1_w, norm1_b, w1, b1, trow, norm2_w,
+                                norm2_b, *, num_groups: int = 32,
+                                eps: float = 1e-5, fault=None,
+                                gn2_tiles=None):
+    """GN2's per-channel (scale, shift) of the twin, stacked (2, N, Cout) in
+    fp32: what kernel E's fin2 pass writes (interleaved) to its ``ss2``
+    scratch, with ``fault`` and ``gn2_tiles`` as in
+    ``resnet_fused_reference``."""
+    _, (scale, shift) = _resnet_first_half(
+        x, norm1_w, norm1_b, w1, b1, trow, norm2_w, norm2_b, num_groups, eps,
+        fault, gn2_tiles)
+    return torch.stack([scale[..., 0, 0], shift[..., 0, 0]])
+
+
+def bind_resnet(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a kernel E library (``ea_resnet_fused``)."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    # x, gn1 w/b, w1, b1, trow, gn2 w/b, w2, b2, wsc, bsc, out, h, scratch,
-    # N, cin, cout, H, W, groups, eps, dtype, stream
-    lib.ea_resnet_fused.argtypes = ([ptr] * 15 + [i32] * 6
+    # x, gn1 w/b, w1, b1, trow, gn2 w/b, w2, b2, wsc, bsc, out, xn, xs, h,
+    # hn, part1, part2, ss2, acc; N, cin, cout, H, W, groups, cp1, cp2, bn,
+    # split1, split2, slots, segs; eps, dtype, stream
+    lib.ea_resnet_fused.argtypes = ([ptr] * 21 + [i32] * 13
                                     + [ctypes.c_float, i32, ptr])
     lib.ea_resnet_fused.restype = i32
-    lib.ea_resnet_scratch_floats.argtypes = [i32] * 7
-    lib.ea_resnet_scratch_floats.restype = ctypes.c_longlong
+    lib.ea_resnet_occupancy.argtypes = [i32, i32, ctypes.POINTER(i32)]
+    lib.ea_resnet_occupancy.restype = i32
     lib.ea_cuda_error_string.argtypes = [i32]
     lib.ea_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _resnet_library() -> ctypes.CDLL:
+    from editanything_tpu_torch.core.build import load_cuda_library
+    return bind_resnet(load_cuda_library("resnet_fused"))
 
 
 def build_resnet() -> None:
@@ -710,19 +952,104 @@ def build_resnet() -> None:
     _resnet_library()
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def resnet_occupancy(bn: int, dtype) -> Tuple[int, int]:
+    """(conv CTAs per SM, dynamic shared memory bytes) of kernel E's conv
+    at channel tile bn on the current device."""
+    out = (ctypes.c_int * 2)()
+    lib = _resnet_library()
+    _raise_on(lib.ea_resnet_occupancy(bn, _DTYPE_CODES[dtype], out), lib,
+              "resnet_occupancy")
+    return out[0], out[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _resnet_layout(n, cin, cout, h, w, num_groups, shortcut, sms):
+    """(plan, scratch sizes, offsets and totals of the two scratch
+    buffers) of a block shape: the wrapper's per-call work, done once."""
+    plan = resnet_plan(n, cin, cout, h, w, num_groups, shortcut, sms)
+    sizes = resnet_scratch(n, cin, cout, h, w, num_groups, shortcut, plan)
+    offs_t, total_t = _scratch_offsets(sizes, RESNET_SCRATCH_T)
+    offs_f, total_f = _scratch_offsets(sizes, RESNET_SCRATCH_F32)
+    return plan, sizes, offs_t, total_t, offs_f, total_f
+
+
+def _resnet_launch(lib, x, args, num_groups, eps):
+    """Plan kernel E's call, pack (cached) its weights, allocate its output
+    and scratch (one buffer in x's dtype, one in fp32) and call
+    ``ea_resnet_fused`` of ``lib`` on the current stream (checked CUDA
+    inputs in x's dtype). Returns (out, plan, scratch), scratch(name) a
+    view of one scratch buffer: chip_smoke.py reads GN2's scale and shift
+    in scratch("ss2")."""
+    (norm1_w, norm1_b, w1, b1, trow, norm2_w, norm2_b, w2, b2, wsc,
+     bsc) = args
+    n, cin, hgt, wid = x.shape
+    cout = w1.shape[0]
+    dt, dev = x.dtype, x.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    plan, sizes, offs_t, total_t, offs_f, total_f = _resnet_layout(
+        n, cin, cout, hgt, wid, num_groups, wsc is not None, _sm_count(index))
+    # held until the launch is queued: the pointers are into these
+    vecs = [None if t is None else t.contiguous()
+            for t in (norm1_w, norm1_b, w1, b1, trow, norm2_w, norm2_b, w2,
+                      b2, wsc, bsc)]
+    vecs[2] = packed_conv_weight(w1, plan.cp_in)
+    vecs[7] = packed_conv_weight(w2, plan.cp_out)
+    if wsc is not None:
+        vecs[9] = packed_conv_weight(wsc, plan.cp_in)
+    out = torch.empty((n, cout, hgt, wid), dtype=dt, device=dev)
+    buf_t = torch.empty(total_t, dtype=dt, device=dev)
+    buf_f = torch.empty(total_f, dtype=torch.float32, device=dev)
+    base_t, base_f = buf_t.data_ptr(), buf_f.data_ptr()
+    item = buf_t.element_size()
+    ptr = {name: base_t + item * offs_t[name] for name in RESNET_SCRATCH_T}
+    ptr.update((name, base_f + 4 * offs_f[name])
+               for name in RESNET_SCRATCH_F32)
+    for name, size in sizes.items():
+        if size == 0:
+            ptr[name] = None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call():
+        return lib.ea_resnet_fused(
+            x.data_ptr(), *(None if t is None else t.data_ptr() for t in vecs),
+            out.data_ptr(), ptr["xn"], ptr["xs"], ptr["h"], ptr["hn"],
+            ptr["part1"], ptr["part2"], ptr["ss2"], ptr["acc"],
+            n, cin, cout, hgt, wid, num_groups, plan.cp_in, plan.cp_out,
+            plan.bn, plan.split1, plan.split2, plan.slots, plan.segs,
+            float(eps), _DTYPE_CODES[dt], stream)
+    if index == torch.cuda.current_device():
+        err = call()
+    else:
+        with torch.cuda.device(dev):
+            err = call()
+    _raise_on(err, lib, "resnet_fused")
+
+    def scratch(name):
+        buf, offs = (buf_t, offs_t) if name in offs_t else (buf_f, offs_f)
+        return buf[offs[name]:offs[name] + sizes[name]]
+    return out, plan, scratch
+
+
 def resnet_fused(x, norm1_w, norm1_b, w1, b1, trow, norm2_w, norm2_b, w2,
                  b2, wsc=None, bsc=None, *, num_groups: int = 32,
                  eps: float = 1e-5):
     """The SD resnet block in one call (the arguments of
     ``resnet_fused_reference``): x (N, Cin, H, W) -> (N, Cout, H, W) in x's
-    dtype, 3x3 convs in the torch layout (Cout, Cin, 3, 3) read as they are.
+    dtype, 3x3 convs in the torch layout (Cout, Cin, 3, 3).
 
-    CUDA tensors launch kernel E (six launches on the current stream, eight
-    where conv2 is split over K; counted once in ``resnet_fused.launches``)
-    and take fp32 or bf16 with every parameter in x's dtype; CPU tensors
-    take the plain twin. Shapes the block cannot have raise: channels that
-    do not split into the groups, kernels other than 3x3, an identity
-    shortcut with Cin != Cout."""
+    CUDA tensors launch kernel E (six device launches on the current
+    stream, two more for each conv split over K; counted once in
+    ``resnet_fused.launches``) as ``resnet_plan`` plans it, with the conv
+    weights packed tap-major once per weight tensor (``packed_conv_weight``,
+    repacked after an in-place change), and take fp32 or bf16 with every
+    parameter in x's dtype; CPU tensors take the plain twin. Shapes the
+    block cannot have raise: channels that do not split into the groups,
+    kernels other than 3x3, an identity shortcut with Cin != Cout."""
     if x.dim() != 4:
         raise ValueError(f"resnet_fused takes NCHW, got {tuple(x.shape)}")
     n, cin, hgt, wid = x.shape
@@ -755,24 +1082,8 @@ def resnet_fused(x, norm1_w, norm1_b, w1, b1, trow, norm2_w, norm2_b, w2,
            for t in args):
         raise TypeError("resnet_fused: every parameter must have x's dtype "
                         "and device")
-    # held until the launch is queued: the pointers are into these tensors
-    x = x.contiguous()
-    args = [None if t is None else t.contiguous() for t in args]
-    ptrs = [None if t is None else t.data_ptr() for t in args]
-    lib = _resnet_library()
-    dev = x.device
-    out = torch.empty((n, cout, hgt, wid), dtype=dt, device=dev)
-    h = torch.empty((n, cout, hgt, wid), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        scratch = torch.empty(lib.ea_resnet_scratch_floats(
-            n, cin, cout, hgt, wid, num_groups, int(wsc is not None)),
-            dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ea_resnet_fused(
-            x.data_ptr(), *ptrs, out.data_ptr(), h.data_ptr(),
-            scratch.data_ptr(), n, cin, cout, hgt, wid, num_groups,
-            float(eps), _DTYPE_CODES[dt], stream)
-    _raise_on(err, lib, "resnet_fused")
+    out = _resnet_launch(_resnet_library(), x.contiguous(), args, num_groups,
+                         eps)[0]
     resnet_fused.launches += 1
     return out
 

@@ -4,56 +4,76 @@
 //
 // Replaces the Pallas TPU kernel editanything_tpu/core/kernels.py
 // (_resnet_kernel, :604; _resnet_pallas, :680; resnet_fused, :801), which
-// holds one whole image in VMEM. Rounding points are the Pallas kernel's
-// (:645-675): the normalised activations xn and hn are rounded to the storage
-// dtype before each conv; the conv sums, h, GN2's statistics and the output
-// sum stay fp32 until one final rounding; the shortcut product takes the raw
-// x in the storage dtype with fp32 sums.
+// holds one whole image in VMEM and runs each conv as 9 roll + mask +
+// matmul taps. Rounding points are the Pallas kernel's (:645-675): the
+// normalised activations xn and hn are rounded to the storage dtype before
+// each conv; the conv sums, h, GN2's statistics and the output sum stay
+// fp32 until one final rounding; the shortcut product takes the raw x in the
+// storage dtype with fp32 sums; zero padding comes after the normalisation.
 //
 // What bounds it on this card: at the UNet's 64x64 blocks (batch 4, 320
 // channels) it does 60 GFLOP against ~21 MB of activations and weights, and
 // at the VAE's 512x512 blocks 300-500 GFLOP: the tensor cores bound it (989
-// TFLOP/s dense bf16), ~60 us and ~0.3-0.5 ms. Only the 8x8 blocks (2560 ->
-// 1280) are bound by reading their 95 MB of weights. A Hopper block has 227
-// KB of shared memory, one image of a 64x64x320 block is 2.6 MB, and
-// GroupNorm needs whole-image statistics twice (of x, then of conv1's
-// output), so E cannot be one pass over an image as on the TPU.
+// TFLOP/s dense bf16). Only the 8x8 blocks (2560 -> 1280) are bound by
+// reading their 95 MB of weights. A block has 227 KB of shared memory, one
+// image of a 64x64x320 block is 2.6 MB, and GroupNorm needs whole-image
+// statistics twice, so E cannot be one pass over an image as on the TPU.
 //
-// Design: six launches on the caller's stream (eight where conv2 is split
-// over K).
-//   1. stats_kernel: per (image, group) slab of NCHW (contiguous), chunk
-//      means and centred sums of squares (fp32);
-//   2. finalize_kernel: merges a slab's chunks (Chan's formula, no
-//      E[x^2] - E[x]^2 cancellation) into per-(image, channel) scale and
-//      shift of the GroupNorm affine;
-//   3. conv_kernel, conv1 as an implicit GEMM: M = an 8 x 16 tile of output
-//      pixels, N = 128 output channels, K = 9 Cin in the torch weight layout
-//      (Cout, Cin, 3, 3) as it is (k = cin * 9 + tap). A stage takes 16 input
-//      channels: their 10 x 18 halo tile, read from NCHW x, normalised with
-//      GN1's scale/shift, SiLU'd and rounded to the storage dtype once per
-//      element (0 outside the image: the reference pads the normalised
-//      activation), and the 144 weight columns of those channels, which are
-//      contiguous in the torch layout and arrive by cp.async. The mma.sync
-//      A fragments (bf16 in, fp32 sums) are read from the halo tile through a
-//      table of (channel, tap) offsets, so each input element is normalised
-//      once instead of once per tap. Stages are double-buffered: the next
-//      stage's loads are in flight while this one's products run. Epilogue:
-//      + b1 + trow[image], h written in fp32. Where the output tiles are
-//      too few for the card (the 8x8 blocks: 40 tiles for 132 SMs), K is
-//      split over blocks that add their sums into a zeroed fp32 buffer;
-//   4-5. the same statistics and scale/shift of h (GN2);
-//   6. conv2 the same way from h with GN2 + SiLU in the prologue; the 1x1
-//      shortcut is one more K segment of the same GEMM (16 channels of raw x
-//      against conv_shortcut per stage), or the identity add of x in the
-//      epilogue, which adds b2 and the shortcut bias and rounds once (a split
-//      conv2 rounds in one more launch).
-// 8 warps, each 2 tile rows (32 pixels) x 64 channels. fp32 (the tests'
-// path) uses the same code with exact FMAs. Later work: wgmma with TMA-fed
-// operands and GN2's statistics in conv1's epilogue (this design reads h
-// once more for them).
+// Design: each conv is an implicit GEMM over channels-last (NHWC)
+// activations on mma.sync, and the normalisations are passes that write
+// those activations. Six launches on the caller's stream:
+//   1. stats_x: GN1's (count, mean, M2) per chunk of each NCHW (image,
+//      group) slab (one pass: per-thread shifted sums, merged by Chan's
+//      formula; at most 16 chunks a slab);
+//   2. norm_x: merges a channel block's GN1 chunks (Chan's formula), then
+//      reads x (NCHW) once in 64-channel x 64-pixel tiles and writes
+//      xn = SiLU(GN1(x)) rounded to the storage dtype as NHWC, through a
+//      shared-memory transpose (16-byte reads along pixels, 16-byte writes
+//      along channels); with a 1x1 shortcut also raw x as NHWC (the
+//      shortcut's K segment). Channels are padded to a multiple of 8
+//      (zeros), so every pixel's channel run is whole 16-byte vectors;
+//   3. conv: conv1 as an implicit GEMM. M = the N*H*W output pixels (the
+//      batch folded in, so small images share one pass over the weights),
+//      tiles of 128; N = output channels, tiles of 64, 128 or 160 chosen by
+//      the caller so that no tile is more than half empty; K tap-major
+//      (k = tap * Cin + c), 64 channels of one tap a stage. A rows are
+//      16-byte channel vectors of the shifted pixel, fetched by cp.async
+//      (zero-filled outside the image: zero padding after the
+//      normalisation); B are the weights packed once by the caller to
+//      (Cout, 3, 3, Cin). Both sit in a 3-stage cp.async ring (one stage's
+//      wait a step behind, one barrier a step) whose 16-byte chunks are
+//      XOR-swizzled by row, read by ldmatrix.x4 without bank conflicts into
+//      mma.sync.m16n8k16 (bf16 in, fp32 sums). 8 warps: 4 along M (32
+//      pixels each) x 2 along N, two CTAs per SM (128 registers, 96-108 KB
+//      of shared memory each). The epilogue adds b1 and trow[image], stages
+//      the fp32 tile in shared memory, writes h (NHWC fp32) with 16-byte
+//      stores and reduces the tile to GN2 partials (count, mean, M2) per
+//      (image, group) segment, two passes over the staged tile, one warp a
+//      segment, written without atomics (groups may straddle a channel tile
+//      and tiles may straddle images: each partial carries its count);
+//   4. fin2: one block per (image, group) merges its partials by Chan's
+//      formula into GN2's per-channel scale and shift (a launch of its own:
+//      at the VAE's 512^2 one image has 2048 M tiles of partials per group,
+//      which every CTA of the next pass would otherwise merge again);
+//   5. norm_h: hn = SiLU(GN2(h)) rounded, NHWC, 16-byte accesses;
+//   6. conv: conv2 the same way, the 1x1 shortcut one more K segment over
+//      raw x (or the identity add of x in the epilogue), + b2 and the
+//      shortcut bias, rounded once and stored to NCHW from the staged tile
+//      (each warp a run of 32 pixels of one channel).
+// Where the output tiles are fewer than the SMs (the 8x8 and 16x16
+// blocks), K is split over CTAs that add into zeroed fp32 sums: a split
+// conv1 takes GN2's partials in a pass of its own over h (tile_stats), a
+// split conv2 rounds in one more (store_out); two more launches each.
+// fp32 (the tests' path) uses the same tiling and ring with exact FMAs, one
+// CTA per SM. The convs run mma.sync at about 250 TFLOP/s at the UNet's
+// 64x64 blocks (NVIDIA H100 80GB HBM3 at 700 W, PERF.md); later work: wgmma
+// with TMA-fed operands and a producer warp.
 //
 // Plain C interface for ctypes: ea_resnet_fused returns the first
-// cudaGetLastError() that is not 0, or 0 on success.
+// cudaGetLastError() that is not 0, or 0 on success. The launch plan (the
+// channel tile, the splits, the partials' layout, the padded channel
+// strides) and every scratch buffer come from the caller
+// (editanything_tpu_torch/core/kernels.py::resnet_plan).
 
 #include <algorithm>
 
@@ -63,111 +83,45 @@ namespace {
 
 using namespace ea;
 
-constexpr int kTH = 8, kTW = 16;   // output tile: 8 rows x 16 columns = 128 pixels
-constexpr int kBN = 128;           // output channels per tile
-constexpr int kCC = 16;            // input channels per stage
-constexpr int kHW = kTW + 2;       // halo tile: 10 rows x 18 columns
-constexpr int kHalo = (kTH + 2) * kHW;
-constexpr int kLDH = 184;          // halo row stride of a channel (>= kHalo)
-constexpr int kK3 = kCC * 9;       // K per 3x3 stage (torch order: c * 9 + tap)
-constexpr int kThreads = 256;      // 8 warps: 4 along M (2 tile rows each) x 2 along N
-constexpr int kInPer = (kCC * kHalo + kThreads - 1) / kThreads;   // staged per thread
-constexpr int kChunk = 16384;      // statistics: elements per block
+constexpr int kThreads = 256;   // 8 warps (the passes other than the convs)
+constexpr int kBM = 128;        // output pixels (GEMM rows) per conv tile
+constexpr int kWarpsM = 4;      // conv warps along M (x 2 along N)
+constexpr int kConvThreads = 64 * kWarpsM;
+constexpr int kMT = kBM / (16 * kWarpsM);   // a conv warp's m16 tiles
+constexpr int kBK = 64;         // K elements per stage: 64 channels of one tap
+constexpr int kStages = 3;      // cp.async ring depth
+constexpr int kChunk = 16384;   // GN1 statistics: least elements per block,
+constexpr int kMaxChunks = 16;  // and at most this many blocks per slab
+constexpr int kNC = 64;         // normalise pass: channels per CTA
+constexpr int kNP = 64;         // normalise pass: pixels per tile
+constexpr int kNormPix = 128;   // normalise pass: pixels per CTA
+constexpr int kLDT = kNP + 2;   // its transpose tile's row stride
 
-template <typename T>
-struct ConvSmem {
-  static constexpr int LDB = kK3 + pad_of<T>();
-  static constexpr size_t b = 0;                                         // 2 x (kBN, LDB)
-  static constexpr size_t in = align128(b + 2 * kBN * LDB * sizeof(T));  // 2 x (kCC, kLDH)
-  static constexpr size_t koff = align128(in + 2 * kCC * kLDH * sizeof(T));  // kK3 + kCC
-  static constexpr size_t halo = align128(koff + (kK3 + kCC) * sizeof(int));  // kHalo
-  static constexpr size_t total = align128(halo + kHalo * sizeof(int));   // + (cin, 2) fp32
+struct Stat {
+  float n, mean, m2;
 };
 
-// sum of v over the block (blockDim.x == kThreads); every thread gets it
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) s += red[w];
-  return s;
+// Chan's merge of two (count, mean, M2) partials
+__device__ __forceinline__ Stat chan(Stat a, Stat b) {
+  const float n = a.n + b.n;
+  if (n == 0.0f) return a;
+  const float d = b.mean - a.mean, f = b.n / n;
+  return {n, a.mean + d * f, a.m2 + b.m2 + d * d * a.n * f};
 }
 
-// grid (chunks, slabs): the mean and centred sum of squares of one chunk of
-// one (image, group) slab, written to part[(slab * chunks + chunk) * 2 + {0,1}]
-template <typename TS>
-__global__ void __launch_bounds__(kThreads)
-stats_kernel(const TS* src, float* part, long long slab, int chunks) {
-  __shared__ float red[kThreads / 32];
-  const int c = blockIdx.x;
-  const long long s = blockIdx.y;
-  const long long start = static_cast<long long>(c) * kChunk;
-  const int len = static_cast<int>(min(static_cast<long long>(kChunk), slab - start));
-  const TS* base = src + s * slab + start;
-  float sum = 0.0f;
-  for (int i = threadIdx.x; i < len; i += kThreads) sum += to_f(base[i]);
-  const float mean = block_sum(sum, red) / len;
-  float m2 = 0.0f;
-  for (int i = threadIdx.x; i < len; i += kThreads) {
-    const float d = to_f(base[i]) - mean;
-    m2 += d * d;
+// the merge over the warp; lane 0's result on every lane
+__device__ __forceinline__ Stat warp_chan(Stat s) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const Stat t{__shfl_xor_sync(0xffffffffu, s.n, o),
+                 __shfl_xor_sync(0xffffffffu, s.mean, o),
+                 __shfl_xor_sync(0xffffffffu, s.m2, o)};
+    s = chan(s, t);
   }
-  m2 = block_sum(m2, red);
-  if (threadIdx.x == 0) {
-    part[(s * chunks + c) * 2] = mean;
-    part[(s * chunks + c) * 2 + 1] = m2;
-  }
+  return {__shfl_sync(0xffffffffu, s.n, 0), __shfl_sync(0xffffffffu, s.mean, 0),
+          __shfl_sync(0xffffffffu, s.m2, 0)};
 }
 
-// grid (images): per channel, merge its group's chunk statistics and write
-// the GroupNorm affine as ss[(image * C + c) * 2 + {0: scale, 1: shift}]:
-// scale = gamma * rstd, shift = beta - mean * scale
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-finalize_kernel(const float* part, const T* gamma, const T* beta, float* ss,
-                int C, int G, long long slab, int chunks, float eps) {
-  const int n = blockIdx.x, cpg = C / G;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    const float* p = part + (static_cast<long long>(n) * G + c / cpg) * chunks * 2;
-    const float total = static_cast<float>(slab);
-    float mean = 0.0f;
-    for (int i = 0; i < chunks; ++i) {
-      const float cnt = static_cast<float>(min(static_cast<long long>(kChunk),
-                                               slab - static_cast<long long>(i) * kChunk));
-      mean += p[2 * i] * cnt;
-    }
-    mean /= total;
-    float m2 = 0.0f;
-    for (int i = 0; i < chunks; ++i) {
-      const float cnt = static_cast<float>(min(static_cast<long long>(kChunk),
-                                               slab - static_cast<long long>(i) * kChunk));
-      const float d = p[2 * i] - mean;
-      m2 += p[2 * i + 1] + d * d * cnt;
-    }
-    const float rstd = 1.0f / sqrtf(m2 / total + eps);
-    const float scale = to_f(gamma[c]) * rstd;
-    ss[(static_cast<long long>(n) * C + c) * 2] = scale;
-    ss[(static_cast<long long>(n) * C + c) * 2 + 1] = to_f(beta[c]) - mean * scale;
-  }
-}
-
-struct ConvArgs {
-  const void* src;     // (N, cin, H, W): x (storage dtype) or h (fp32)
-  const float* ss;     // (N, cin, 2) GroupNorm scale and shift
-  const void* w;       // (cout, cin, 3, 3)
-  const void* bias;    // (cout)
-  const void* trow;    // (N, cout) or null
-  const void* xsc;     // (N, cx, H, W) raw x for the shortcut, or null
-  const void* wsc;     // (cout, cx): 1x1 shortcut; null with xsc: identity
-  const void* bsc;     // (cout) or null
-  void* out;           // (N, cout, H, W): h (fp32) or the output
-  float* acc;          // split over K: zeroed fp32 (N, cout, H, W) sums, else null
-  int cin, cout, cx, height, width, splits;
-};
+__device__ __forceinline__ Stat load_stat(const float* p) { return {p[0], p[1], p[2]}; }
 
 template <typename T>
 __device__ __forceinline__ float silu_of(float v);
@@ -181,256 +135,511 @@ __device__ __forceinline__ float silu_of<__nv_bfloat16>(float v) {
   return v < -80.0f ? 0.0f : __fdividef(v, 1.0f + __expf(-v));
 }
 
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// acc += A (the warp's 2 x 16 pixels, K columns kb .. kb + 16 ksteps) x
-// B^T (its 64 channels); A(pixel, k) = in[hb[t] + (g or g + 8) + koff[k]],
-// B row-major (channel, k) with stride ldb
-template <int KSTEPS>
-__device__ __forceinline__ void tile_mma(float (&acc)[2][8][4], const __nv_bfloat16* in,
-                                         const int (&hb)[2], const int* koff,
-                                         const __nv_bfloat16* B, int ldb) {
-  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
-#pragma unroll 3
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const int k0 = kk * 16 + tig * 2;
-    const int o0 = koff[k0], o1 = koff[k0 + 1], o2 = koff[k0 + 8], o3 = koff[k0 + 9];
-    uint32_t b[8][2];
+// 1. grid (chunks, slabs): (count, mean, M2) of one chunk of one NCHW
+// (image, group) slab, at part[(slab * chunks + chunk) * 3]
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+stats_x_kernel(const T* src, float* part, long long slab, int chunk, int chunks) {
+  __shared__ Stat red[kThreads / 32];
+  const int c = blockIdx.x;
+  const long long s = blockIdx.y;
+  const long long start = static_cast<long long>(c) * chunk;
+  const int len = static_cast<int>(min(static_cast<long long>(chunk), slab - start));
+  const T* base = src + s * slab + start;
+  // one pass: per thread, sums shifted by the first element it reads (no
+  // cancellation while the shift is near the mean), then Chan's merge over
+  // the block; 16-byte loads where the chunk is whole aligned vectors
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = len % V == 0 && (s * slab) % V == 0;
+  float shift = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  int cnt = 0;
+  if (vec) {
+    if (threadIdx.x < len / V) shift = to_f(base[threadIdx.x * V]);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < len / V; i += kThreads) {
+      alignas(16) T v[V];
+      *reinterpret_cast<uint4*>(v) = reinterpret_cast<const uint4*>(base)[i];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const __nv_bfloat16* w = B + (n * 8 + g) * ldb + k0;
-      b[n][0] = lds32(w);
-      b[n][1] = lds32(w + 8);
-    }
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const __nv_bfloat16* p = in + hb[t] + g;
-      uint32_t a[4];
-      a[0] = pack2(p[o0], p[o1]);
-      a[1] = pack2(p[o0 + 8], p[o1 + 8]);
-      a[2] = pack2(p[o2], p[o3]);
-      a[3] = pack2(p[o2 + 8], p[o3 + 8]);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) mma_bf16(acc[t][n], a, b[n][0], b[n][1]);
-    }
-  }
-}
-
-// the same product in exact fp32 FMAs, in the same fragment layout: the
-// tests' path
-template <int KSTEPS>
-__device__ __forceinline__ void tile_mma(float (&acc)[2][8][4], const float* in,
-                                         const int (&hb)[2], const int* koff,
-                                         const float* B, int ldb) {
-  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
-  for (int k = 0; k < KSTEPS * 16; ++k) {
-    const int o = koff[k];
-    float w[8][2];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      w[n][0] = B[(n * 8 + tig * 2) * ldb + k];
-      w[n][1] = B[(n * 8 + tig * 2 + 1) * ldb + k];
-    }
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const float a0 = in[hb[t] + g + o], a1 = in[hb[t] + g + 8 + o];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        acc[t][n][0] = fmaf(a0, w[n][0], acc[t][n][0]);
-        acc[t][n][1] = fmaf(a0, w[n][1], acc[t][n][1]);
-        acc[t][n][2] = fmaf(a1, w[n][0], acc[t][n][2]);
-        acc[t][n][3] = fmaf(a1, w[n][1], acc[t][n][3]);
+      for (int e = 0; e < V; ++e) {
+        const float d = to_f(v[e]) - shift;
+        s1 += d;
+        s2 += d * d;
       }
+      cnt += V;
     }
+  } else {
+    if (threadIdx.x < len) shift = to_f(base[threadIdx.x]);
+    for (int i = threadIdx.x; i < len; i += kThreads) {
+      const float d = to_f(base[i]) - shift;
+      s1 += d;
+      s2 += d * d;
+      ++cnt;
+    }
+  }
+  const float fc = static_cast<float>(cnt);
+  Stat st = cnt ? Stat{fc, shift + s1 / fc, fmaxf(s2 - s1 * s1 / fc, 0.0f)}
+                : Stat{0.0f, 0.0f, 0.0f};
+  st = warp_chan(st);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) red[warp] = st;
+  __syncthreads();
+  st = red[0];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) st = chan(st, red[w]);
+  const float mean = st.mean, m2 = st.m2;
+  if (threadIdx.x == 0) {
+    float* p = part + (s * chunks + c) * 3;
+    p[0] = static_cast<float>(len);
+    p[1] = mean;
+    p[2] = m2;
   }
 }
 
-// 3x3 conv (padding 1) of SiLU(src * scale + shift) as an implicit GEMM over
-// one 8 x 16 tile of output pixels and 128 output channels; T the storage
-// dtype, TS the source's element type, TO the output's. Block x is the tile,
-// y the channel tile, z (image, split over K). A stage takes kCC input
-// channels: their 10 x 18 halo tile, normalised once per element (0 outside
-// the image), and the weights of all 9 taps (kK3 contiguous columns of the
-// torch layout).
-template <typename T, typename TS, typename TO>
-__global__ void __launch_bounds__(kThreads, 2) conv_kernel(ConvArgs a) {
-  using S = ConvSmem<T>;
-  constexpr int LDB = S::LDB;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sB = reinterpret_cast<T*>(smem + S::b);
-  T* sIn = reinterpret_cast<T*>(smem + S::in);
-  int* sK = reinterpret_cast<int*>(smem + S::koff);     // 3x3 stage, then 1x1
-  int* sHalo = reinterpret_cast<int*>(smem + S::halo);  // pixel offset or -1
-  float* sSS = reinterpret_cast<float*>(smem + S::total);   // (cin, 2)
+struct NormXArgs {
+  const void *x, *gamma, *beta;   // x (N, C, HW); gamma, beta (C)
+  const float* part;              // GN1 chunk partials
+  void* xn;                       // (N, HW, cp) SiLU(GN1(x)), rounded
+  void* xs;                       // (N, HW, cp) raw x, or null
+  int C, cp, G, hw, chunks;
+  float eps;
+};
 
+// 2. grid (pixel ranges of kNormPix, channel blocks of kNC, images)
+template <typename T>
+__global__ void __launch_bounds__(kThreads) norm_x_kernel(NormXArgs a) {
+  constexpr int V = 16 / sizeof(T);   // elements per 16-byte vector
+  __shared__ float s_mean[kNC + 1], s_rstd[kNC + 1], s_scale[kNC], s_shift[kNC];
+  __shared__ __align__(16) unsigned char tile_bytes[2 * kNC * kLDT * sizeof(T)];
+  T* tile = reinterpret_cast<T*>(tile_bytes);   // normalised
+  T* raw = tile + kNC * kLDT;                   // as read
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp % 4, wn = warp / 4;
-  const int split = blockIdx.z % a.splits, n = blockIdx.z / a.splits;
-  const int tiles_x = (a.width + kTW - 1) / kTW;
-  const int y0 = (blockIdx.x / tiles_x) * kTH, x0 = (blockIdx.x % tiles_x) * kTW;
-  const int co0 = blockIdx.y * kBN;
-  const int hw = a.height * a.width;
-  const int steps0 = (a.cin + kCC - 1) / kCC;
-  const int steps = steps0 + (a.wsc ? (a.cx + kCC - 1) / kCC : 0);
-  const int per = (steps + a.splits - 1) / a.splits;
-  const int s_begin = split * per, s_end = min(steps, s_begin + per);
-
-  for (int i = tid; i < 2 * a.cin; i += kThreads) {
-    sSS[i] = a.ss[static_cast<long long>(n) * a.cin * 2 + i];
-  }
-  for (int k = tid; k < kK3 + kCC; k += kThreads) {
-    if (k < kK3) {
-      const int c = k / 9, tap = k - c * 9;
-      sK[k] = c * kLDH + (tap / 3 - 1) * kHW + tap % 3 - 1;
-    } else {
-      sK[k] = (k - kK3) * kLDH;
+  const int n = blockIdx.z, c0 = blockIdx.y * kNC;
+  const int cpg = a.C / a.G;
+  const T* x = static_cast<const T*>(a.x) + static_cast<long long>(n) * a.C * a.hw;
+  // this block's groups: merge their chunks, one warp per group
+  const int c_last = min(c0 + kNC, a.C) - 1;
+  const int g_first = c0 < a.C ? c0 / cpg : 0;
+  const int groups = c0 < a.C ? c_last / cpg - g_first + 1 : 0;
+  for (int gl = warp; gl < groups; gl += kThreads / 32) {
+    const float* p = a.part + (static_cast<long long>(n) * a.G + g_first + gl) * a.chunks * 3;
+    Stat s{0.0f, 0.0f, 0.0f};
+    for (int i = lane; i < a.chunks; i += 32) s = chan(s, load_stat(p + 3 * i));
+    s = warp_chan(s);
+    if (lane == 0) {
+      s_mean[gl] = s.mean;
+      s_rstd[gl] = 1.0f / sqrtf(s.m2 / s.n + a.eps);
     }
-  }
-  for (int i = tid; i < kHalo; i += kThreads) {
-    const int y = y0 - 1 + i / kHW, x = x0 - 1 + i % kHW;
-    sHalo[i] = (y >= 0 && y < a.height && x >= 0 && x < a.width) ? y * a.width + x : -1;
   }
   __syncthreads();
-
-  const TS* src = static_cast<const TS*>(a.src) + static_cast<long long>(n) * a.cin * hw;
-  const T* xsc = a.xsc ? static_cast<const T*>(a.xsc) + static_cast<long long>(n) * a.cx * hw
-                       : nullptr;
-  // halo element i = tid + kThreads j of a stage: channel i / kHalo, pixel i % kHalo
-  float raw[kInPer];
-  auto load_in = [&](int step) {
-    const bool conv = step < steps0;
-    const int c0 = conv ? step * kCC : (step - steps0) * kCC;
-    const int cn = conv ? a.cin : a.cx;
-#pragma unroll
-    for (int j = 0; j < kInPer; ++j) {
-      const int i = tid + kThreads * j;
-      const int c = i / kHalo, off = i < kCC * kHalo ? sHalo[i - c * kHalo] : -1;
-      raw[j] = 0.0f;
-      if (off >= 0 && c0 + c < cn) {
-        const long long at = static_cast<long long>(c0 + c) * hw + off;
-        raw[j] = conv ? to_f(src[at]) : to_f(xsc[at]);
-      }
+  if (tid < kNC) {
+    const int c = c0 + tid;
+    float scale = 0.0f, shift = 0.0f;
+    if (c < a.C) {
+      const int gl = c / cpg - g_first;
+      scale = to_f(static_cast<const T*>(a.gamma)[c]) * s_rstd[gl];
+      shift = to_f(static_cast<const T*>(a.beta)[c]) - s_mean[gl] * scale;
     }
-  };
-  auto store_in = [&](int step, T* dst) {
-    const bool conv = step < steps0;
-    const int c0 = conv ? step * kCC : (step - steps0) * kCC;
-    const int cn = conv ? a.cin : a.cx;
-#pragma unroll
-    for (int j = 0; j < kInPer; ++j) {
-      const int i = tid + kThreads * j;
-      if (i >= kCC * kHalo) break;
-      const int c = i / kHalo, hp = i - c * kHalo;
-      float v = raw[j];
-      if (conv && sHalo[hp] >= 0 && c0 + c < cn) {
-        v = silu_of<T>(v * sSS[2 * (c0 + c)] + sSS[2 * (c0 + c) + 1]);
-      }
-      dst[c * kLDH + hp] = from_f<T>(v);
-    }
-  };
-  auto load_b = [&](int step, T* dst) {
-    const bool conv = step < steps0;
-    const T* wsrc = static_cast<const T*>(conv ? a.w : a.wsc);
-    const int klen = conv ? a.cin * 9 : a.cx;
-    const int kw = conv ? kK3 : kCC;                 // columns of this stage
-    const int kb = conv ? step * kK3 : (step - steps0) * kCC;
-    constexpr int V = 16 / sizeof(T);
-    const int chunks = kw / V;
-    const bool vec = klen % V == 0 && reinterpret_cast<uintptr_t>(wsrc) % 16 == 0;
-    for (int i = tid; i < kBN * chunks; i += kThreads) {
-      const int r = i / chunks, c = (i - r * chunks) * V;
-      const int co = co0 + r, k = kb + c;
-      T* d = dst + r * LDB + c;
-      const T* s = wsrc + static_cast<long long>(co) * klen + k;
-      if (vec && co < a.cout && k + V <= klen) {
-        cp_async16(d, s);
+    s_scale[tid] = scale;
+    s_shift[tid] = shift;
+  }
+  __syncthreads();
+  const bool vec = a.hw % V == 0;
+  const int p_end = min(a.hw, (blockIdx.x + 1) * kNormPix);
+  for (int p0 = blockIdx.x * kNormPix; p0 < p_end; p0 += kNP) {
+    // load kNC channels x kNP pixels, normalise, round
+    for (int i = tid; i < kNC * (kNP / V); i += kThreads) {
+      const int cl = i / (kNP / V), pl = (i % (kNP / V)) * V;
+      const int c = c0 + cl, p = p0 + pl;
+      alignas(16) T v[V];
+      if (c < a.C && vec && p < a.hw) {
+        *reinterpret_cast<uint4*>(v) =
+            *reinterpret_cast<const uint4*>(x + static_cast<long long>(c) * a.hw + p);
       } else {
 #pragma unroll
         for (int e = 0; e < V; ++e) {
-          d[e] = (co < a.cout && k + e < klen) ? s[e] : from_f<T>(0.0f);
+          v[e] = (c < a.C && p + e < a.hw) ? x[static_cast<long long>(c) * a.hw + p + e]
+                                          : from_f<T>(0.0f);
         }
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float f = c < a.C ? silu_of<T>(to_f(v[e]) * s_scale[cl] + s_shift[cl]) : 0.0f;
+        tile[cl * kLDT + pl + e] = from_f<T>(f);
+        raw[cl * kLDT + pl + e] = v[e];
+      }
+    }
+    __syncthreads();
+    // store each pixel's channel run: 16-byte vectors along channels
+    for (int i = tid; i < kNP * (kNC / V); i += kThreads) {
+      const int pl = i / (kNC / V), cl = (i % (kNC / V)) * V;
+      const int p = p0 + pl, c = c0 + cl;
+      if (p >= a.hw || c >= a.cp) continue;
+      alignas(16) T v[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[e] = tile[(cl + e) * kLDT + pl];
+      const long long o = (static_cast<long long>(n) * a.hw + p) * a.cp + c;
+      *reinterpret_cast<uint4*>(static_cast<T*>(a.xn) + o) = *reinterpret_cast<uint4*>(v);
+      if (a.xs) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[e] = raw[(cl + e) * kLDT + pl];
+        *reinterpret_cast<uint4*>(static_cast<T*>(a.xs) + o) = *reinterpret_cast<uint4*>(v);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+struct ConvArgs {
+  const void* a;      // NHWC (M, cpa): xn or hn, storage dtype
+  const void* w;      // (cout, 9, cpa) packed weights
+  const void* asc;    // NHWC (M, cpx) raw x of a 1x1 shortcut, or null
+  const void* wsc;    // (cout, cpx) packed 1x1 shortcut, or null
+  const void* bias;   // (cout)
+  const void* trow;   // (N, cout) or null
+  const void* bsc;    // (cout) or null
+  const void* xid;    // identity shortcut: NCHW x (N, cout, HW), or null
+  float* h;           // conv1: NHWC (M, cph) fp32 h (zeroed sums where split)
+  float* part;        // conv1 unsplit: GN2 partials, else null
+  void* out;          // conv2: NCHW (N, cout, HW) in the storage dtype
+  float* acc;         // conv2 split: zeroed NCHW fp32 sums, else null
+  int cpa, cpx, cout, cph, height, width, batch, splits, slots, segs, cpg;
+};
+
+// the ring's layout: per stage an A tile (kBM rows) and a B tile (BN rows)
+// of kBK elements, each row's 16-byte chunks XOR-swizzled by row; the
+// epilogue's fp32 tile reuses the same memory
+template <typename T, int BN>
+struct ConvSmem {
+  static constexpr int V = 16 / static_cast<int>(sizeof(T));   // elements a chunk
+  static constexpr int CPR = kBK / V;                          // chunks a row
+  static constexpr int RPP = kConvThreads / CPR;               // rows a copy pass
+  static constexpr size_t a_bytes = static_cast<size_t>(kBM) * kBK * sizeof(T);
+  static constexpr size_t stage = static_cast<size_t>(kBM + BN) * kBK * sizeof(T);
+  static constexpr size_t ring = kStages * stage;
+  static constexpr int LDE = BN + 4;                           // epilogue row stride
+  static constexpr size_t epi = static_cast<size_t>(kBM) * LDE * sizeof(float);
+  static constexpr size_t total = ring > epi ? ring : epi;
+};
+
+// element offset of (row, chunk) in a swizzled tile
+template <typename T>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  static_assert(kBK / V >= 8, "rows of at least 8 chunks");
+  return row * kBK + ((chunk ^ (row & 7)) * V);
+}
+
+// mma.sync m16n8k16 (bf16 in, fp32 sums) without the volatile of
+// common.cuh's mma_bf16: a pure register operation, so the compiler may
+// issue it between the (volatile, ordered) ldmatrix loads of the next k-step
+__device__ __forceinline__ void mma_sched(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// one stage's products: the warp's 16 kMT rows x BN/2 columns, K = kBK;
+// each k-step's fragments are all loaded before its products
+template <int BN>
+__device__ __forceinline__ void stage_mma(float (&acc)[kMT][BN / 16][4], const __nv_bfloat16* sA,
+                                          const __nv_bfloat16* sB, int wm, int wn) {
+  constexpr int NT = BN / 16;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    uint32_t af[kMT][4], bf[NT / 2][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int row = wm * (16 * kMT) + mt * 16 + lane % 16;
+      ldsm_x4(af[mt], sA + swz<__nv_bfloat16>(row, kk * 2 + lane / 16));
+    }
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      const int row = wn * (BN / 2) + np * 16 + (lane / 16) * 8 + lane % 8;
+      ldsm_x4(bf[np], sB + swz<__nv_bfloat16>(row, kk * 2 + (lane / 8) % 2));
+    }
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        mma_sched(acc[mt][2 * np], af[mt], bf[np][0], bf[np][1]);
+        mma_sched(acc[mt][2 * np + 1], af[mt], bf[np][2], bf[np][3]);
+      }
+    }
+  }
+}
+
+// the same products in exact fp32 FMAs, same fragment layout: the tests' path
+template <int BN>
+__device__ __forceinline__ void stage_mma(float (&acc)[kMT][BN / 16][4], const float* sA,
+                                          const float* sB, int wm, int wn) {
+  constexpr int NT = BN / 16;
+  const int lane = threadIdx.x % 32, g = lane / 4, tig = lane % 4;
+  for (int k = 0; k < kBK; ++k) {
+    float av[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wm * (16 * kMT) + mt * 16 + g + 8 * h;
+        av[mt][h] = sA[swz<float>(row, k / 4) + k % 4];
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float bv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = wn * (BN / 2) + nt * 8 + tig * 2 + e;
+        bv[e] = sB[swz<float>(row, k / 4) + k % 4];
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        acc[mt][nt][0] = fmaf(av[mt][0], bv[0], acc[mt][nt][0]);
+        acc[mt][nt][1] = fmaf(av[mt][0], bv[1], acc[mt][nt][1]);
+        acc[mt][nt][2] = fmaf(av[mt][1], bv[0], acc[mt][nt][2]);
+        acc[mt][nt][3] = fmaf(av[mt][1], bv[1], acc[mt][nt][3]);
+      }
+    }
+  }
+}
+
+// GN2 partials of the staged fp32 tile E (kBM rows from pixel m0, BN
+// columns from channel n0; row stride lde): one (count, mean, M2) per
+// (image, group) segment the tile holds, one warp per segment, two passes
+// over the tile. Written at part[(((mt * slots + image slot) * ntiles + nt)
+// * segs + group segment) * 3].
+__device__ void tile_stats(const float* E, int lde, int bn, int m0, int n0, int M, int hw,
+                           int cout, int cpg, int mt, int nt, int ntiles, int slots, int segs,
+                           float* part) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int m_end = min(m0 + kBM, M), c_end = min(n0 + bn, cout);
+  const int n_first = m0 / hw, n_last = (m_end - 1) / hw;
+  const int g_first = n0 / cpg, g_last = (c_end - 1) / cpg;
+  const int ng = g_last - g_first + 1;
+  const int pairs = (n_last - n_first + 1) * ng;
+  for (int pi = warp; pi < pairs; pi += blockDim.x / 32) {
+    const int img = n_first + pi / ng, gi = g_first + pi % ng;
+    const int r0 = max(m0, img * hw) - m0, r1 = min(m_end, (img + 1) * hw) - m0;
+    const int cb = max(n0, gi * cpg) - n0, ce = min(c_end, (gi + 1) * cpg) - n0;
+    const int cw = ce - cb, cnt = (r1 - r0) * cw;
+    // lanes cover q rows of the segment at a time (cw <= 32), or its
+    // columns 32 at a time: no division per element; four rows in flight
+    const int q = cw <= 32 ? 32 / cw : 1;
+    const int lr = cw <= 32 ? lane / cw : 0, lc = cw <= 32 ? lane % cw : lane;
+    const int rows = lr < q ? r1 - r0 - lr : 0;     // rows from r0 + lr
+    const float* e0 = E + (r0 + lr) * lde;
+    auto sum_rows = [&](auto f) {
+      float acc4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      int i = 0;
+      for (; i + 3 * q < rows; i += 4 * q) {
+        for (int c = cb + lc; c < ce; c += 32) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc4[u] += f(e0[(i + u * q) * lde + c]);
+        }
+      }
+      for (; i < rows; i += q) {
+        for (int c = cb + lc; c < ce; c += 32) acc4[0] += f(e0[i * lde + c]);
+      }
+      return (acc4[0] + acc4[1]) + (acc4[2] + acc4[3]);
+    };
+    const float mean = warp_sum(sum_rows([](float v) { return v; })) / cnt;
+    float m2 = sum_rows([mean](float v) { return (v - mean) * (v - mean); });
+    m2 = warp_sum(m2);
+    if (lane == 0) {
+      float* p = part + ((static_cast<long long>(mt * slots + img - n_first) * ntiles + nt) * segs +
+                         gi - g_first) * 3;
+      p[0] = static_cast<float>(cnt);
+      p[1] = mean;
+      p[2] = m2;
+    }
+  }
+}
+
+// 3 and 6. grid (M tiles, channel tiles, splits over K). CONV1: h and GN2's
+// partials; else the block's output with the shortcut.
+template <typename T, int BN, bool CONV1>
+__global__ void __launch_bounds__(kConvThreads, sizeof(T) == 2 ? 2 : 1) conv_kernel(ConvArgs a) {
+  using S = ConvSmem<T, BN>;
+  constexpr int NT = BN / 16, V = S::V, CPR = S::CPR, RPP = S::RPP;
+  constexpr int APASS = kBM / RPP, BPASS = BN / RPP;
+  static_assert(kBM % RPP == 0 && BN % RPP == 0, "whole copy passes");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
+  const int hw = a.height * a.width, M = a.batch * hw;
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN, split = blockIdx.z;
+  const int kc = (a.cpa + kBK - 1) / kBK, kcx = a.asc ? (a.cpx + kBK - 1) / kBK : 0;
+  const int steps = 9 * kc + kcx;
+  const int per = (steps + a.splits - 1) / a.splits;
+  const int s_begin = split * per, s_end = min(steps, s_begin + per);
+  const int nsteps = max(0, s_end - s_begin);
+
+  // this thread's copy slots: chunk `col` of rows row0 + j * RPP, the
+  // pixel of each (-1 past the end) and its (y, x) as y << 16 | x
+  const int col = tid % CPR, row0 = tid / CPR;
+  int pm[APASS], pyx[APASS];
+#pragma unroll
+  for (int j = 0; j < APASS; ++j) {
+    const int m = m0 + row0 + j * RPP;
+    pm[j] = m < M ? m : -1;
+    const int r = m % hw;
+    pyx[j] = (r / a.width) << 16 | (r % a.width);
+  }
+  const T* A = static_cast<const T*>(a.a);
+  const T* W = static_cast<const T*>(a.w);
+  const T* ASC = static_cast<const T*>(a.asc);
+  const T* WSC = static_cast<const T*>(a.wsc);
+  auto load = [&](int s, int slot) {
+    T* sA = reinterpret_cast<T*>(smem + slot * S::stage);
+    T* sB = reinterpret_cast<T*>(smem + slot * S::stage + S::a_bytes);
+    if (s < 9 * kc) {
+      const int tap = s / kc, ch = (s % kc) * kBK + col * V;
+      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+      const bool cv = ch < a.cpa;
+#pragma unroll
+      for (int j = 0; j < APASS; ++j) {
+        const int y = (pyx[j] >> 16) + dy, x = (pyx[j] & 0xffff) + dx;
+        const bool ok = cv && pm[j] >= 0 && y >= 0 && y < a.height && x >= 0 && x < a.width;
+        const T* src = ok ? A + static_cast<long long>(pm[j] + dy * a.width + dx) * a.cpa + ch : A;
+        cp_async16_zfill(sA + swz<T>(row0 + j * RPP, col), src, ok);
+      }
+#pragma unroll
+      for (int j = 0; j < BPASS; ++j) {
+        const int co = n0 + row0 + j * RPP;
+        const bool ok = cv && co < a.cout;
+        const T* src = ok ? W + (static_cast<long long>(co) * 9 + tap) * a.cpa + ch : W;
+        cp_async16_zfill(sB + swz<T>(row0 + j * RPP, col), src, ok);
+      }
+    } else {   // the 1x1 shortcut's K segment over raw x
+      const int ch = (s - 9 * kc) * kBK + col * V;
+      const bool cv = ch < a.cpx;
+#pragma unroll
+      for (int j = 0; j < APASS; ++j) {
+        const bool ok = cv && pm[j] >= 0;
+        const T* src = ok ? ASC + static_cast<long long>(pm[j]) * a.cpx + ch : ASC;
+        cp_async16_zfill(sA + swz<T>(row0 + j * RPP, col), src, ok);
+      }
+#pragma unroll
+      for (int j = 0; j < BPASS; ++j) {
+        const int co = n0 + row0 + j * RPP;
+        const bool ok = cv && co < a.cout;
+        const T* src = ok ? WSC + static_cast<long long>(co) * a.cpx + ch : WSC;
+        cp_async16_zfill(sB + swz<T>(row0 + j * RPP, col), src, ok);
       }
     }
   };
 
-  float acc[2][8][4];
+  float acc[kMT][NT][4];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int t = 0; t < 8; ++t) acc[m][t][0] = acc[m][t][1] = acc[m][t][2] = acc[m][t][3] = 0.0f;
-  // halo index of pixel (tile row 2 wm + t, column 0) of this warp
-  const int hb[2] = {(2 * wm + 1) * kHW + 1, (2 * wm + 2) * kHW + 1};
+    for (int t = 0; t < NT; ++t) acc[mt][t][0] = acc[mt][t][1] = acc[mt][t][2] = acc[mt][t][3] = 0.0f;
 
-  if (s_begin < s_end) {
-    load_b(s_begin, sB);
+  // the ring: stage i + kStages - 1 is requested while stage i is multiplied
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < nsteps) load(s_begin + i, i);
     cp_async_commit();
-    load_in(s_begin);
-    store_in(s_begin, sIn);
   }
-  for (int s = s_begin; s < s_end; ++s) {
-    const int buf = (s - s_begin) & 1;
-    cp_async_wait<0>();
-    __syncthreads();   // stage buf complete; stage buf ^ 1 no longer read
-    const bool more = s + 1 < s_end;
-    if (more) {
-      load_b(s + 1, sB + (buf ^ 1) * kBN * LDB);
-      cp_async_commit();
-      load_in(s + 1);
-    }
-    const T* in = sIn + buf * kCC * kLDH;
-    const T* B = sB + buf * kBN * LDB + wn * 64 * LDB;
-    if (s < steps0) {
-      tile_mma<kK3 / 16>(acc, in, hb, sK, B, LDB);
-    } else {
-      tile_mma<kCC / 16>(acc, in, hb, sK + kK3, B, LDB);
-    }
-    if (more) store_in(s + 1, sIn + (buf ^ 1) * kCC * kLDH);
+  for (int i = 0; i < nsteps; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // stage i landed for all; the slot of stage i - 1 is free
+    const int next = i + kStages - 1;
+    if (next < nsteps) load(s_begin + next, next % kStages);
+    cp_async_commit();
+    const int slot = i % kStages;
+    stage_mma<BN>(acc, reinterpret_cast<const T*>(smem + slot * S::stage),
+                  reinterpret_cast<const T*>(smem + slot * S::stage + S::a_bytes), wm, wn);
   }
+  cp_async_wait<0>();
+  __syncthreads();
 
-  // epilogue: row g (+8) of m-tile t is pixel (y0 + 2 wm + t, x0 + g (+8)),
-  // columns channels; the first split adds the biases, trow and the
-  // identity shortcut
+  // epilogue: the fp32 tile, biases added by the first split, staged in
+  // shared memory; row g (+8) of m-tile mt is pixel m0 + 16 (kMT wm + mt) + g
+  // row stride: 16-byte rows for conv1's NHWC stores, odd for conv2's
+  // reads down a channel
+  float* E = reinterpret_cast<float*>(smem);
+  constexpr int LDE = CONV1 ? S::LDE : BN + 1;
   const int g = lane / 4, tig = lane % 4;
   const bool first = split == 0;
   const T* bias = static_cast<const T*>(a.bias);
-  const T* trow = a.trow ? static_cast<const T*>(a.trow) + static_cast<long long>(n) * a.cout
-                         : nullptr;
+  const T* trow = static_cast<const T*>(a.trow);
   const T* bsc = static_cast<const T*>(a.bsc);
-  const long long obase = static_cast<long long>(n) * a.cout * hw;
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int y = y0 + 2 * wm + m, x = x0 + g + 8 * rr;
-      if (y >= a.height || x >= a.width) continue;
-      const int p = y * a.width + x;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = wm * (16 * kMT) + mt * 16 + g + 8 * hh;
+      const int img = min(m0 + r, M - 1) / hw;
 #pragma unroll
-      for (int t = 0; t < 8; ++t) {
+      for (int t = 0; t < NT; ++t) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int co = co0 + wn * 64 + t * 8 + tig * 2 + e;
-          if (co >= a.cout) continue;
-          float v = acc[m][t][2 * rr + e];
-          if (first) {
-            if (trow) {
-              v += to_f(trow[co]) + to_f(bias[co]);
-            } else {
-              v += to_f(bias[co]);
-            }
-            if (a.wsc) {
-              v += to_f(bsc[co]);
-            } else if (xsc) {
-              v += to_f(xsc[static_cast<long long>(co) * hw + p]);
-            }
+          const int c = wn * (BN / 2) + t * 8 + tig * 2 + e, co = n0 + c;
+          float v = acc[mt][t][2 * hh + e];
+          if (first && co < a.cout) {
+            v += to_f(bias[co]);
+            if (trow) v += to_f(trow[static_cast<long long>(img) * a.cout + co]);
+            if (bsc) v += to_f(bsc[co]);
           }
-          const long long o = obase + static_cast<long long>(co) * hw + p;
+          E[r * LDE + c] = v;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  if constexpr (CONV1) {
+    // h, NHWC fp32: 16-byte stores along channels (sums where split)
+    for (int i = tid; i < kBM * (BN / 4); i += kConvThreads) {
+      const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+      const int m = m0 + r, co = n0 + c;
+      if (m >= M || co >= a.cout) continue;
+      float* dst = a.h + static_cast<long long>(m) * a.cph + co;
+      const float4 v = *reinterpret_cast<const float4*>(E + r * LDE + c);
+      if (a.splits > 1) {
+        atomicAdd(dst, v.x);
+        if (co + 1 < a.cout) atomicAdd(dst + 1, v.y);
+        if (co + 2 < a.cout) atomicAdd(dst + 2, v.z);
+        if (co + 3 < a.cout) atomicAdd(dst + 3, v.w);
+      } else {
+        *reinterpret_cast<float4*>(dst) = v;
+      }
+    }
+    if (a.part) {
+      tile_stats(E, LDE, BN, m0, n0, M, hw, a.cout, a.cpg, blockIdx.x, blockIdx.y, gridDim.y,
+                 a.slots, a.segs, a.part);
+    }
+  } else {
+    // the output, NCHW: thread t owns row (pixel) t % kBM of the tile and
+    // every (kConvThreads / kBM)-th channel, so each warp stores a run of
+    // 32 pixels of one channel at a time
+    constexpr int CSTEP = kConvThreads / kBM;
+    static_assert(kConvThreads % kBM == 0, "whole tile rows a thread");
+    const T* xid = static_cast<const T*>(a.xid);
+    const int r = tid % kBM, m = m0 + r;
+    if (m < M) {
+      const int img = m / hw;
+      const int cn = min(BN, a.cout - n0);
+      long long o = (static_cast<long long>(img) * a.cout + n0 + tid / kBM) * hw + (m - img * hw);
+      // 8 channels at a time, so that their loads of x are in flight together
+      for (int c0 = tid / kBM; c0 < cn; c0 += 8 * CSTEP, o += 8 * CSTEP * hw) {
+        float v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = c0 + j * CSTEP;
+          v[j] = c < cn ? E[r * LDE + c] : 0.0f;
+          if (first && xid && c < cn) v[j] += to_f(xid[o + j * CSTEP * hw]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (c0 + j * CSTEP >= cn) break;
           if (a.acc) {
-            atomicAdd(a.acc + o, v);
+            atomicAdd(a.acc + o + j * CSTEP * hw, v[j]);
           } else {
-            static_cast<TO*>(a.out)[o] = from_f<TO>(v);
+            static_cast<T*>(a.out)[o + j * CSTEP * hw] = from_f<T>(v[j]);
           }
         }
       }
@@ -438,173 +647,290 @@ __global__ void __launch_bounds__(kThreads, 2) conv_kernel(ConvArgs a) {
   }
 }
 
+// a split conv1's GN2 partials: grid (M tiles, channel tiles), h staged
+// tile by tile as conv1's epilogue stages it
+template <int BN>
+__global__ void __launch_bounds__(kConvThreads)
+    tile_stats_kernel(const float* h, float* part, int M, int hw, int cout, int cph, int cpg,
+                      int slots, int segs) {
+  constexpr int LDE = BN + 4;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* E = reinterpret_cast<float*>(smem);
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
+  for (int i = threadIdx.x; i < kBM * (BN / 4); i += kConvThreads) {
+    const int r = i / (BN / 4), c = (i % (BN / 4)) * 4;
+    const int m = m0 + r, co = n0 + c;
+    if (m < M && co < cout) {
+      *reinterpret_cast<float4*>(E + r * LDE + c) =
+          *reinterpret_cast<const float4*>(h + static_cast<long long>(m) * cph + co);
+    }
+  }
+  __syncthreads();
+  tile_stats(E, LDE, BN, m0, n0, M, hw, cout, cpg, blockIdx.x, blockIdx.y, gridDim.y, slots,
+             segs, part);
+}
+
+// 4. one block per (image, group): merge its GN2 partials (each thread a
+// strided share, then the warps, then the block), write the per-channel
+// scale and shift ss[(image * cout + c) * 2 + {0, 1}]
 template <typename T>
-__global__ void __launch_bounds__(kThreads) store_kernel(const float* acc, T* out,
-                                                         long long count) {
+__global__ void __launch_bounds__(kThreads)
+fin2_kernel(const float* part, const T* gamma, const T* beta, float* ss, int hw, int cout,
+            int G, int bn, int ntiles, int slots, int segs, float eps) {
+  __shared__ Stat red[kThreads / 32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n = blockIdx.x / G, gi = blockIdx.x % G, cpg = cout / G;
+  const int mt0 = n * hw / kBM, mt1 = ((n + 1) * hw - 1) / kBM;
+  const int nt0 = gi * cpg / bn, nt1 = ((gi + 1) * cpg - 1) / bn;
+  const int nnt = nt1 - nt0 + 1, count = (mt1 - mt0 + 1) * nnt;
+  Stat s{0.0f, 0.0f, 0.0f};
+  for (int i = threadIdx.x; i < count; i += kThreads) {
+    const int mt = mt0 + i / nnt, nt = nt0 + i % nnt;
+    const int slot = n - mt * kBM / hw, seg = gi - nt * bn / cpg;
+    s = chan(s, load_stat(part + ((static_cast<long long>(mt * slots + slot) * ntiles + nt) *
+                                  segs + seg) * 3));
+  }
+  s = warp_chan(s);
+  if (lane == 0) red[warp] = s;
+  __syncthreads();
+  s = red[0];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) s = chan(s, red[w]);
+  const float rstd = 1.0f / sqrtf(s.m2 / s.n + eps);
+  for (int c = gi * cpg + threadIdx.x; c < (gi + 1) * cpg; c += kThreads) {
+    const float scale = to_f(gamma[c]) * rstd;
+    ss[(static_cast<long long>(n) * cout + c) * 2] = scale;
+    ss[(static_cast<long long>(n) * cout + c) * 2 + 1] = to_f(beta[c]) - s.mean * scale;
+  }
+}
+
+// 5. hn = SiLU(h * scale + shift) rounded, NHWC with stride cph (channels
+// from cout on written 0), 8 channels a thread
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+norm_h_kernel(const float* h, const float* ss, T* hn, int M, int hw, int cout, int cph) {
+  const int vecs = cph / 8, total = M * vecs;   // < 2^31 (checked by the caller)
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < total; i += gridDim.x * kThreads) {
+    const int m = i / vecs, c = (i - m * vecs) * 8, n = m / hw;
+    const float* src = h + static_cast<long long>(m) * cph + c;
+    const float4 lo = *reinterpret_cast<const float4*>(src);
+    const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+    const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const float2* t = reinterpret_cast<const float2*>(ss) + n * cout + c;
+    alignas(16) T o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      float y = 0.0f;
+      if (c + e < cout) {
+        const float2 st = t[e];
+        y = silu_of<T>(v[e] * st.x + st.y);
+      }
+      o[e] = from_f<T>(y);
+    }
+    uint4* dst = reinterpret_cast<uint4*>(hn + static_cast<long long>(m) * cph + c);
+#pragma unroll
+    for (int q = 0; q < static_cast<int>(sizeof(T)) / 2; ++q) {
+      dst[q] = reinterpret_cast<const uint4*>(o)[q];
+    }
+  }
+}
+
+// a split conv2's sums, rounded once
+template <typename T>
+__global__ void __launch_bounds__(kThreads) store_out_kernel(const float* acc, T* out,
+                                                             long long count) {
   for (long long i = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; i < count;
        i += static_cast<long long>(gridDim.x) * kThreads) {
     out[i] = from_f<T>(acc[i]);
   }
 }
 
-int sm_count() {   // of the current device
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-    return 132;
-  }
-  return sms;
+int grid_of(long long items) {
+  return static_cast<int>(std::min((items + kThreads - 1) / kThreads, 8LL * 65535));
 }
 
-// splits over K for a conv of `steps` K stages: enough blocks for about two
-// per SM where the output tiles alone are too few (the 8x8 blocks), each
-// split keeping at least 16 stages
-int pixel_tiles(int height, int width) {
-  return ((height + kTH - 1) / kTH) * ((width + kTW - 1) / kTW);
-}
-
-int split_k(int batch, int cout, int height, int width, int steps) {
-  const int tiles = pixel_tiles(height, width) * ((cout + kBN - 1) / kBN) * batch;
-  const int want = (2 * sm_count() + tiles - 1) / tiles;
-  const int most = std::max(1, steps / 4);
-  return std::max(1, std::min({want, most, 65535 / batch}));
-}
-
-int conv_steps(int cin, int cx, bool shortcut) {
-  return (cin + kCC - 1) / kCC + (shortcut ? (cx + kCC - 1) / kCC : 0);
-}
-
-template <typename T, typename TS, typename TO>
-cudaError_t launch_conv(const ConvArgs& a, int batch, cudaStream_t stream) {
-  using S = ConvSmem<T>;
+template <typename T, int BN, bool CONV1>
+cudaError_t launch_conv(const ConvArgs& a, cudaStream_t stream) {
+  using S = ConvSmem<T, BN>;
   static_assert(S::total <= static_cast<size_t>(kMaxSmem), "tile too big");
-  const size_t smem = S::total + 2 * sizeof(float) * a.cin;
-  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  auto* kernel = conv_kernel<T, BN, CONV1>;
   static SmemGrant grant;
-  cudaError_t e = grant_smem(grant, conv_kernel<T, TS, TO>, kMaxSmem);
+  cudaError_t e = grant_smem(grant, kernel, S::total, true);
   if (e != cudaSuccess) return e;
-  const dim3 grid(pixel_tiles(a.height, a.width), (a.cout + kBN - 1) / kBN, batch * a.splits);
-  conv_kernel<T, TS, TO><<<grid, kThreads, smem, stream>>>(a);
+  const int M = a.batch * a.height * a.width;
+  const dim3 grid((M + kBM - 1) / kBM, (a.cout + BN - 1) / BN, a.splits);
+  kernel<<<grid, kConvThreads, S::total, stream>>>(a);
   return cudaGetLastError();
 }
 
-// GroupNorm statistics of src (N, C, hw) folded into ss with gamma/beta
-template <typename T, typename TS>
-cudaError_t launch_norm(const TS* src, const T* gamma, const T* beta, float* part,
-                        float* ss, int batch, int C, int G, int hw, float eps,
-                        cudaStream_t stream) {
-  const long long slab = static_cast<long long>(C / G) * hw;
-  const int chunks = static_cast<int>((slab + kChunk - 1) / kChunk);
-  stats_kernel<TS><<<dim3(chunks, batch * G), kThreads, 0, stream>>>(src, part, slab, chunks);
-  cudaError_t e = cudaGetLastError();
+template <int BN>
+cudaError_t launch_tile_stats(const float* h, float* part, int M, int hw, int cout, int cph,
+                              int cpg, int slots, int segs, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kBM) * (BN + 4) * sizeof(float);
+  static SmemGrant grant;
+  cudaError_t e = grant_smem(grant, tile_stats_kernel<BN>, smem);
   if (e != cudaSuccess) return e;
-  finalize_kernel<T><<<batch, kThreads, 0, stream>>>(part, gamma, beta, ss, C, G, slab,
-                                                      chunks, eps);
+  const dim3 grid((M + kBM - 1) / kBM, (cout + BN - 1) / BN);
+  tile_stats_kernel<BN><<<grid, kConvThreads, smem, stream>>>(h, part, M, hw, cout, cph, cpg, slots,
+                                                          segs);
   return cudaGetLastError();
 }
 
 struct BlockArgs {
   const void *x, *gn1_w, *gn1_b, *w1, *b1, *trow, *gn2_w, *gn2_b, *w2, *b2, *wsc, *bsc;
-  void* out;
-  float *h, *scratch;
-  int batch, cin, cout, height, width, groups;
+  void *out, *xn, *xs, *hn;
+  float *h, *part1, *part2, *ss2, *acc;
+  int batch, cin, cout, height, width, groups, cp1, cp2, bn, split1, split2, slots, segs;
   float eps;
 };
 
-// the fp32 scratch: ss1 (N, cin, 2) | ss2 (N, cout, 2) | chunk statistics |
-// conv2's split-K sums (N, cout, H, W) where conv2 is split
-struct Scratch {
-  long long ss1, ss2, part, acc, total;
-  int split1, split2;
-  Scratch(int batch, int cin, int cout, int height, int width, int groups, bool shortcut) {
-    const int hw = height * width;
-    split1 = split_k(batch, cout, height, width, conv_steps(cin, cin, false));
-    split2 = split_k(batch, cout, height, width, conv_steps(cout, cin, shortcut));
-    const long long slab = static_cast<long long>(std::max(cin, cout)) / groups * hw;
-    ss1 = 0;
-    ss2 = ss1 + 2LL * batch * cin;
-    part = ss2 + 2LL * batch * cout;
-    acc = part + 2LL * batch * groups * ((slab + kChunk - 1) / kChunk);
-    total = acc + (split2 > 1 ? static_cast<long long>(batch) * cout * hw : 0);
+// GN1's chunk of a slab: at least kChunk elements, at most kMaxChunks
+// chunks a slab, a multiple of 8 (core/kernels.py::resnet_plan mirrors it)
+int gn1_chunk(long long slab) {
+  const long long per = ((slab + kMaxChunks - 1) / kMaxChunks + 7) / 8 * 8;
+  return static_cast<int>(std::max(static_cast<long long>(kChunk), per));
+}
+
+template <typename T, int BN>
+cudaError_t run(const BlockArgs& b, cudaStream_t stream) {
+  const int hw = b.height * b.width, M = b.batch * hw;
+  const long long slab = static_cast<long long>(b.cin / b.groups) * hw;
+  const int chunk = gn1_chunk(slab);
+  const int chunks = static_cast<int>((slab + chunk - 1) / chunk);
+  stats_x_kernel<T><<<dim3(chunks, b.batch * b.groups), kThreads, 0, stream>>>(
+      static_cast<const T*>(b.x), b.part1, slab, chunk, chunks);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  NormXArgs nx{b.x, b.gn1_w, b.gn1_b, b.part1, b.xn, b.wsc ? b.xs : nullptr,
+               b.cin, b.cp1, b.groups, hw, chunks, b.eps};
+  norm_x_kernel<T><<<dim3((hw + kNormPix - 1) / kNormPix, (b.cp1 + kNC - 1) / kNC, b.batch),
+                      kThreads, 0, stream>>>(nx);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  ConvArgs c1{};
+  c1.a = b.xn; c1.w = b.w1; c1.bias = b.b1; c1.trow = b.trow;
+  c1.h = b.h; c1.part = b.split1 > 1 ? nullptr : b.part2;
+  c1.cpa = b.cp1; c1.cout = b.cout; c1.cph = b.cp2;
+  c1.height = b.height; c1.width = b.width; c1.batch = b.batch; c1.splits = b.split1;
+  c1.slots = b.slots; c1.segs = b.segs; c1.cpg = b.cout / b.groups;
+  if (b.split1 > 1) {
+    e = cudaMemsetAsync(b.h, 0, static_cast<size_t>(M) * b.cp2 * sizeof(float), stream);
+    if (e != cudaSuccess) return e;
   }
-};
+  e = launch_conv<T, BN, true>(c1, stream);
+  if (e != cudaSuccess) return e;
+  if (b.split1 > 1) {
+    e = launch_tile_stats<BN>(b.h, b.part2, M, hw, b.cout, b.cp2, c1.cpg, b.slots, b.segs,
+                              stream);
+    if (e != cudaSuccess) return e;
+  }
+  const int ntiles = (b.cout + BN - 1) / BN;
+  fin2_kernel<T><<<b.batch * b.groups, kThreads, 0, stream>>>(
+      b.part2, static_cast<const T*>(b.gn2_w), static_cast<const T*>(b.gn2_b), b.ss2, hw, b.cout,
+      b.groups, BN, ntiles, b.slots, b.segs, b.eps);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  norm_h_kernel<T><<<grid_of(static_cast<long long>(M) * (b.cp2 / 8)), kThreads, 0, stream>>>(
+      b.h, b.ss2, static_cast<T*>(b.hn), M, hw, b.cout, b.cp2);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+
+  ConvArgs c2{};
+  c2.a = b.hn; c2.w = b.w2; c2.bias = b.b2;
+  c2.asc = b.wsc ? b.xs : nullptr; c2.wsc = b.wsc; c2.bsc = b.bsc;
+  c2.xid = b.wsc ? nullptr : b.x;
+  c2.out = b.out;
+  c2.cpa = b.cp2; c2.cpx = b.cp1; c2.cout = b.cout;
+  c2.height = b.height; c2.width = b.width; c2.batch = b.batch; c2.splits = b.split2;
+  const long long outs = static_cast<long long>(M) * b.cout;
+  if (b.split2 > 1) {
+    c2.acc = b.acc;
+    e = cudaMemsetAsync(b.acc, 0, outs * sizeof(float), stream);
+    if (e != cudaSuccess) return e;
+  }
+  e = launch_conv<T, BN, false>(c2, stream);
+  if (e != cudaSuccess || b.split2 == 1) return e;
+  store_out_kernel<T><<<grid_of(outs), kThreads, 0, stream>>>(b.acc, static_cast<T*>(b.out),
+                                                              outs);
+  return cudaGetLastError();
+}
 
 template <typename T>
-cudaError_t run(const BlockArgs& b, cudaStream_t stream) {
-  const int hw = b.height * b.width;
-  const Scratch sc(b.batch, b.cin, b.cout, b.height, b.width, b.groups, b.wsc != nullptr);
-  float* ss1 = b.scratch + sc.ss1;
-  float* ss2 = b.scratch + sc.ss2;
-  float* part = b.scratch + sc.part;
-  const long long outs = static_cast<long long>(b.batch) * b.cout * hw;
-  cudaError_t e = launch_norm<T, T>(static_cast<const T*>(b.x), static_cast<const T*>(b.gn1_w),
-                                    static_cast<const T*>(b.gn1_b), part, ss1, b.batch,
-                                    b.cin, b.groups, hw, b.eps, stream);
-  if (e != cudaSuccess) return e;
-  ConvArgs c1{};
-  c1.src = b.x; c1.ss = ss1; c1.w = b.w1; c1.bias = b.b1; c1.trow = b.trow;
-  c1.out = b.h; c1.cin = b.cin; c1.cout = b.cout; c1.cx = b.cin;
-  c1.height = b.height; c1.width = b.width; c1.splits = sc.split1;
-  if (sc.split1 > 1) {
-    c1.acc = b.h;
-    e = cudaMemsetAsync(b.h, 0, outs * sizeof(float), stream);
-    if (e != cudaSuccess) return e;
+cudaError_t run_bn(const BlockArgs& b, cudaStream_t stream) {
+  switch (b.bn) {
+    case 64: return run<T, 64>(b, stream);
+    case 128: return run<T, 128>(b, stream);
+    case 160: return run<T, 160>(b, stream);
+    default: return cudaErrorInvalidValue;
   }
-  e = launch_conv<T, T, float>(c1, b.batch, stream);
+}
+
+template <typename T, int BN>
+cudaError_t occupancy(int* out) {
+  using S = ConvSmem<T, BN>;
+  static SmemGrant grant;
+  cudaError_t e = grant_smem(grant, conv_kernel<T, BN, true>, S::total, true);
   if (e != cudaSuccess) return e;
-  e = launch_norm<T, float>(b.h, static_cast<const T*>(b.gn2_w), static_cast<const T*>(b.gn2_b),
-                            part, ss2, b.batch, b.cout, b.groups, hw, b.eps, stream);
-  if (e != cudaSuccess) return e;
-  ConvArgs c2{};
-  c2.src = b.h; c2.ss = ss2; c2.w = b.w2; c2.bias = b.b2;
-  c2.xsc = b.x; c2.wsc = b.wsc; c2.bsc = b.bsc;
-  c2.out = b.out; c2.cin = b.cout; c2.cout = b.cout; c2.cx = b.cin;
-  c2.height = b.height; c2.width = b.width; c2.splits = sc.split2;
-  if (sc.split2 > 1) {
-    c2.acc = b.scratch + sc.acc;
-    e = cudaMemsetAsync(c2.acc, 0, outs * sizeof(float), stream);
-    if (e != cudaSuccess) return e;
-  }
-  e = launch_conv<T, float, T>(c2, b.batch, stream);
-  if (e != cudaSuccess || sc.split2 == 1) return e;
-  const int blocks = static_cast<int>(std::min((outs + kThreads - 1) / kThreads, 65535LL));
-  store_kernel<T><<<blocks, kThreads, 0, stream>>>(c2.acc, static_cast<T*>(b.out), outs);
-  return cudaGetLastError();
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], conv_kernel<T, BN, true>, kConvThreads,
+                                                    S::total);
+  out[1] = static_cast<int>(S::total);
+  return e;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of the fp32 scratch buffer that ea_resnet_fused needs for these
-// shapes (shortcut: 1 with a 1x1 shortcut conv).
-long long ea_resnet_scratch_floats(int batch, int cin, int cout, int height, int width,
-                                   int groups, int shortcut) {
-  return Scratch(batch, cin, cout, height, width, groups, shortcut != 0).total;
-}
-
 // x (N, cin, H, W), out (N, cout, H, W) in the storage dtype (0 = float32,
-// 1 = bfloat16), as are every weight, bias and GroupNorm affine and trow
-// (N, cout); trow null: no time embedding; wsc (cout, cin) and bsc null: the
-// identity shortcut (cin == cout). Scratch: h (N, cout, H, W) fp32 and
-// `scratch` of ea_resnet_scratch_floats fp32. Returns a cudaError_t (0 =
-// success).
+// 1 = bfloat16), as are every bias, GroupNorm affine and trow (N, cout);
+// trow null: no time embedding; wsc and bsc null: the identity shortcut
+// (cin == cout). w1 (cout, 3, 3, cp1), w2 (cout, 3, 3, cp2) and wsc (cout,
+// cp1) packed, channels zero-padded to cp1 = cin and cp2 = cout rounded up
+// to a multiple of 8. Scratch: xn, xs (xs only with wsc) (N, H, W, cp1) and
+// hn (N, H, W, cp2) in the storage dtype; h (N, H, W, cp2), part1 (N *
+// groups * ceil(cin / groups * H * W / 16384) * 3), part2 (mtiles * slots
+// * ntiles * segs * 3), ss2 (N, cout, 2) and, where split2 > 1, acc (N,
+// cout, H, W), all fp32. bn (64, 128 or 160), the splits over K, slots and
+// segs are the plan's. Returns a cudaError_t (0 = success).
 int ea_resnet_fused(const void* x, const void* gn1_w, const void* gn1_b, const void* w1,
                     const void* b1, const void* trow, const void* gn2_w, const void* gn2_b,
-                    const void* w2, const void* b2, const void* wsc, const void* bsc,
-                    void* out, float* h, float* scratch, int batch, int cin, int cout,
-                    int height, int width, int groups, float eps, int dtype, void* stream) {
-  if (batch < 1 || batch > 65535 || cin < 1 || cout < 1 || groups < 1 || cin % groups ||
-      cout % groups || height < 1 || width < 1 || (!wsc && cin != cout) ||
-      (wsc && !bsc)) {
+                    const void* w2, const void* b2, const void* wsc, const void* bsc, void* out,
+                    void* xn, void* xs, float* h, void* hn, float* part1, float* part2,
+                    float* ss2, float* acc, int batch, int cin, int cout, int height, int width,
+                    int groups, int cp1, int cp2, int bn, int split1, int split2, int slots,
+                    int segs, float eps, int dtype, void* stream) {
+  if (batch < 1 || cin < 1 || cout < 1 || groups < 1 || cin % groups || cout % groups ||
+      height < 1 || width < 1 || (!wsc && cin != cout) || (wsc && (!bsc || !xs)) ||
+      cp1 < cin || cp1 % 8 || cp2 < cout || cp2 % 8 || split1 < 1 || split2 < 1 ||
+      (split2 > 1 && !acc) || slots < 1 || segs < 1 ||
+      static_cast<long long>(batch) * height * width * std::max(cp1, cp2) >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BlockArgs b{x, gn1_w, gn1_b, w1, b1, trow, gn2_w, gn2_b, w2, b2, wsc, bsc,
-              out, h, scratch, batch, cin, cout, height, width, groups, eps};
+              out, xn, xs, hn, h, part1, part2, ss2, acc,
+              batch, cin, cout, height, width, groups, cp1, cp2, bn, split1, split2, slots, segs,
+              eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return static_cast<int>(run<__nv_bfloat16>(b, s));
-  if (dtype == 0) return static_cast<int>(run<float>(b, s));
+  if (dtype == 1) return static_cast<int>(run_bn<__nv_bfloat16>(b, s));
+  if (dtype == 0) return static_cast<int>(run_bn<float>(b, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// conv1's blocks per SM on the current device and its dynamic shared
+// memory in bytes, out[0] and out[1], for channel tile bn and dtype
+int ea_resnet_occupancy(int bn, int dtype, int* out) {
+  cudaError_t e = cudaErrorInvalidValue;
+  if (dtype == 1) {
+    if (bn == 64) e = occupancy<__nv_bfloat16, 64>(out);
+    if (bn == 128) e = occupancy<__nv_bfloat16, 128>(out);
+    if (bn == 160) e = occupancy<__nv_bfloat16, 160>(out);
+  } else if (dtype == 0) {
+    if (bn == 64) e = occupancy<float, 64>(out);
+    if (bn == 128) e = occupancy<float, 128>(out);
+    if (bn == 160) e = occupancy<float, 160>(out);
+  }
+  return static_cast<int>(e);
 }
 
 const char* ea_cuda_error_string(int err) {

@@ -5,8 +5,10 @@ are the diffusers names the JAX parameter trees follow (``norm1``,
 ``attn1.to_out.0``, ``ff.net.0.proj``, ...), so one state dict serves both
 packages (checkpoints/convert.py). Under the JAX package's opt-in switch
 ``EA_RESNET_FUSED=1`` (read at every call, default off) every resnet block
-runs as one call of the fused resnet kernel (``kernels.resnet_fused``);
-otherwise the composed ops.
+runs as one call of kernel E (``kernels.resnet_fused``: six device launches,
+up to ten where the small blocks split their convs over K, with the conv
+weights packed tap-major once per weight and cached); otherwise the composed
+ops (cuDNN convs and the GroupNorm kernel).
 """
 
 from __future__ import annotations

@@ -392,7 +392,7 @@ RESNET_BF16_REL = 2.0 ** -6      # chip_smoke.py RESNET_BF16_REL_BOUND
 RESNET_BF16_RMS = 2e-3           # chip_smoke.py RESNET_BF16_RMS_BOUND
 
 
-def _resnet_inputs(device, dtype, cin, cout, temb, h, w, groups, seed):
+def _resnet_inputs(device, dtype, cin, cout, temb, h, w, groups, seed, n=2):
     """x with per-channel offsets and scales, a block's parameters drawn
     away from their init (norm scales ~1 +- 0.2, biases ~0.5) and trow."""
     g = torch.Generator(device).manual_seed(seed)
@@ -400,17 +400,27 @@ def _resnet_inputs(device, dtype, cin, cout, temb, h, w, groups, seed):
     def rnd(*shape, scale=1.0, shift=0.0):
         return (torch.randn(*shape, generator=g, device=device) * scale
                 + shift).to(dtype)
-    x = (torch.randn(2, cin, h, w, generator=g, device=device)
+    x = (torch.randn(n, cin, h, w, generator=g, device=device)
          * (1 + torch.rand(1, cin, 1, 1, generator=g, device=device))
          + torch.randn(1, cin, 1, 1, generator=g, device=device)).to(dtype)
     args = (rnd(cin, scale=0.2, shift=1.0), rnd(cin, scale=0.5),
             rnd(cout, cin, 3, 3, scale=(9 * cin) ** -0.5), rnd(cout, scale=0.5),
-            rnd(2, cout) if temb else None,
+            rnd(n, cout) if temb else None,
             rnd(cout, scale=0.2, shift=1.0), rnd(cout, scale=0.5),
             rnd(cout, cout, 3, 3, scale=(9 * cout) ** -0.5), rnd(cout, scale=0.5),
             rnd(cout, cin, 1, 1, scale=cin ** -0.5) if cin != cout else None,
             rnd(cout, scale=0.5) if cin != cout else None)
     return x, args
+
+
+def _resnet_check(got, want, dtype):
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.bfloat16:
+        assert err <= RESNET_BF16_REL * want.float().abs().max().item()
+        rms = ((got.float() - want.float()).norm() / want.float().norm()).item()
+        assert rms <= RESNET_BF16_RMS
+    else:
+        assert err <= 1e-4
 
 
 @pytest.mark.cuda
@@ -426,13 +436,60 @@ def test_resnet_fused_kernel_matches_plain(cuda_device, dtype, cin, cout, temb,
     assert tk.resnet_fused.launches == before + 1
     want = tk.resnet_fused_reference(x, *args, num_groups=groups, eps=eps)
     assert got.shape == want.shape == (2, cout, h, w) and got.dtype == dtype
-    err = (got.float() - want.float()).abs().max().item()
-    if dtype == torch.bfloat16:
-        assert err <= RESNET_BF16_REL * want.float().abs().max().item()
-        rms = ((got.float() - want.float()).norm() / want.float().norm()).item()
-        assert rms <= RESNET_BF16_RMS
-    else:
-        assert err <= 1e-4
+    _resnet_check(got, want, dtype)
+
+
+# kernel E's plans (core/kernels.py::resnet_plan): (what, n, cin, cout,
+# time embedding, eps, h, w, groups, plan check)
+RESNET_PLAN_CASES = [
+    ("cout no multiple of the tile", 2, 64, 96, True, 1e-5, 10, 10, 32,
+     lambda p: p.ntiles * p.bn > 96),
+    ("groups straddle a channel tile", 2, 64, 192, True, 1e-5, 12, 12, 32,
+     lambda p: p.bn % (192 // 32) != 0),
+    ("batch folded into M at 8x8", 4, 128, 128, True, 1e-5, 8, 8, 32,
+     lambda p: p.mtiles == 2 and p.slots == 2),
+    ("split over K", 4, 256, 128, True, 1e-5, 8, 8, 32,
+     lambda p: p.split1 > 1 and p.split2 > 1),
+    ("VAE-like, no temb, eps 1e-6", 2, 128, 128, False, 1e-6, 32, 32, 32,
+     lambda p: p.segs == 32),
+    ("ragged Cin and Cout", 2, 24, 40, True, 1e-5, 9, 7, 8,
+     lambda p: p.cp_in == 24 and p.cp_out == 40),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("what,n,cin,cout,temb,eps,h,w,groups,plan_check",
+                         RESNET_PLAN_CASES, ids=[c[0] for c in RESNET_PLAN_CASES])
+def test_resnet_fused_kernel_plans(cuda_device, dtype, what, n, cin, cout, temb,
+                                   eps, h, w, groups, plan_check):
+    plan = tk.resnet_plan(n, cin, cout, h, w, groups, cin != cout,
+                          tk._sm_count(torch.device(cuda_device).index or 0))
+    assert plan_check(plan), f"{what}: {plan}"
+    x, args = _resnet_inputs(cuda_device, dtype, cin, cout, temb, h, w,
+                             groups, seed=7, n=n)
+    got = tk.resnet_fused(x, *args, num_groups=groups, eps=eps)
+    want = tk.resnet_fused_reference(x, *args, num_groups=groups, eps=eps)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (n, cout, h, w)
+    _resnet_check(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resnet_fused_follows_an_in_place_weight_change(cuda_device, dtype):
+    """The packed weights are cached per weight tensor: a second call after
+    an in-place change of each conv weight must see it."""
+    x, args = _resnet_inputs(cuda_device, dtype, 64, 32, True, 16, 16, 32,
+                             seed=8)
+    first = tk.resnet_fused(x, *args)
+    for i in (2, 7, 9):           # w1, w2, the shortcut
+        args[i].mul_(-1.5)
+    second = tk.resnet_fused(x, *args)
+    want = tk.resnet_fused_reference(x, *args)
+    torch.cuda.synchronize()
+    _resnet_check(second, want, dtype)
+    assert (second.float() - first.float()).abs().max().item() > 0.1
 
 
 @pytest.mark.cuda

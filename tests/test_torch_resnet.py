@@ -14,7 +14,15 @@
     images 2 uint8 levels, the bounds of tests/test_torch_edit.py;
 (e) the switch is read per call, a CPU tensor takes the twin, shapes the
     block cannot have raise, and the bundle constructors build on the GPU
-    unless asked otherwise.
+    unless asked otherwise;
+(f) what kernel E's plan mirrors: its tiles cover every output once with
+    no channel tile more than half empty, the tap-major weight pack feeds
+    an implicit GEMM to F.conv2d's result (float64, 1e-10: sums in other
+    orders) and is repacked after an in-place change, and the twin's tiled
+    route for GN2's statistics (per-tile partials merged by Chan's formula,
+    as the kernel takes them) matches the direct statistics (1e-5) and the
+    JAX Pallas kernel (2e-4) where groups straddle a channel tile and tiles
+    straddle images.
 """
 
 import jax
@@ -22,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from editanything_tpu.core import kernels as JK
 from editanything_tpu.engine import DenoiseConfig as JaxDenoiseConfig
@@ -41,6 +50,7 @@ from test_torch_edit import (IMAGE_LEVELS, LATENT_TOL, _checker_image,
 from test_torch_models import BLOCK_TOL, close, nchw, perturb
 
 PALLAS_TOL = 2e-4
+TILED_TOL = 1e-5
 # (cin, cout, temb width or None, eps)
 CASES = [(64, 32, 48, 1e-5), (32, 32, None, 1e-5), (32, 32, None, 1e-6)]
 GEN_ARGS = dict(prompt="a house", condition_image=_checker_image(64, 64),
@@ -242,3 +252,115 @@ def test_constructors_build_on_the_gpu_by_default(which):
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
+
+
+# (n, cin, cout, h, w, groups, shortcut): the main path's UNet and VAE
+# blocks, and shapes whose tiles straddle images (12x12, 8x8 at batch 4),
+# whose channel tiles are ragged (96) or split groups (192 in 64s)
+PLAN_CASES = [(4, 320, 320, 64, 64, 32, False), (4, 640, 320, 64, 64, 32, True),
+              (4, 2560, 1280, 8, 8, 32, True), (2, 256, 128, 512, 512, 32, True),
+              (4, 1280, 640, 16, 16, 32, True), (3, 64, 96, 12, 12, 32, True),
+              (2, 64, 192, 12, 12, 32, True), (2, 16, 32, 9, 9, 8, True)]
+
+
+@pytest.mark.parametrize("n,cin,cout,h,w,groups,shortcut", PLAN_CASES)
+def test_resnet_plan_tiles_cover_every_output_once(n, cin, cout, h, w, groups,
+                                                   shortcut):
+    plan = K.resnet_plan(n, cin, cout, h, w, groups, shortcut)
+    m, bm, bn, hw = n * h * w, K.RESNET_BM, plan.bn, h * w
+    cover = torch.zeros(m, cout, dtype=torch.int32)
+    slots, segs = set(), set()
+    for mt in range(plan.mtiles):
+        for nt in range(plan.ntiles):
+            rows = slice(mt * bm, min((mt + 1) * bm, m))
+            cols = slice(nt * bn, min((nt + 1) * bn, cout))
+            cover[rows, cols] += 1
+            # GN2's partial slots: images and groups this tile touches
+            for img in range(rows.start // hw, (rows.stop - 1) // hw + 1):
+                slots.add(img - rows.start // hw)
+            cpg = cout // groups
+            for gi in range(cols.start // cpg, (cols.stop - 1) // cpg + 1):
+                segs.add(gi - cols.start // cpg)
+    assert bool((cover == 1).all())
+    assert max(slots) + 1 == plan.slots and max(segs) + 1 == plan.segs
+    assert cout - (plan.ntiles - 1) * bn >= bn // 2     # last tile half full
+    assert plan.cp_in % 8 == 0 and plan.cp_in - cin < 8
+    assert plan.cp_out % 8 == 0 and plan.cp_out - cout < 8
+    for steps, split in ((plan.steps1, plan.split1), (plan.steps2, plan.split2)):
+        per = -(-steps // split)
+        assert (split - 1) * per < steps          # no split without work
+        if split > 1:                             # only where tiles are few
+            assert plan.mtiles * plan.ntiles < 132
+            assert per >= K.RESNET_MIN_SPLIT_STEPS
+    sizes = K.resnet_scratch(n, cin, cout, h, w, groups, shortcut, plan)
+    assert sizes["xs"] == (m * plan.cp_in if shortcut else 0)
+    assert sizes["acc"] == (m * cout if plan.split2 > 1 else 0)
+
+
+@pytest.mark.parametrize("cin", [12, 64])
+def test_packed_weight_feeds_an_implicit_gemm(cin):
+    """The pack's K order, tap-major over zero-padded channels, as kernel E
+    reads it: A rows are each pixel's channel run at the tap's shifted
+    pixel (0 outside the image)."""
+    g = torch.Generator().manual_seed(cin)
+    x = torch.randn(2, cin, 7, 9, generator=g, dtype=torch.float64)
+    w = torch.randn(24, cin, 3, 3, generator=g, dtype=torch.float64)
+    cp = -(-cin // 8) * 8
+    wp = K.pack_conv_weight(w, cp)
+    assert wp.shape == (24, 3, 3, cp) and wp.is_contiguous()
+    xp = F.pad(F.pad(x.permute(0, 2, 3, 1), (0, cp - cin)), (0, 0, 1, 1, 1, 1))
+    a = torch.cat([xp[:, dy:dy + 7, dx:dx + 9, :]
+                   for dy in range(3) for dx in range(3)], dim=-1)
+    got = a.reshape(-1, 9 * cp) @ wp.reshape(24, -1).t()
+    want = F.conv2d(x, w, padding=1).permute(0, 2, 3, 1).reshape(-1, 24)
+    torch.testing.assert_close(got, want, atol=1e-10, rtol=0)
+
+
+def test_packed_weights_follow_an_in_place_change():
+    w = torch.randn(8, 16, 3, 3)
+    first = K.packed_conv_weight(w, 16)
+    assert K.packed_conv_weight(w, 16) is first        # cached, not repacked
+    with torch.no_grad():
+        w.mul_(2)
+    again = K.packed_conv_weight(w, 16)
+    assert again is not first
+    torch.testing.assert_close(again, K.pack_conv_weight(w, 16), atol=0, rtol=0)
+
+
+def test_packed_weights_of_inference_tensors():
+    """A weight made under torch.inference_mode has no version counter; it
+    is packed and cached all the same."""
+    with torch.inference_mode():
+        w = torch.randn(8, 16, 3, 3)
+        first = K.packed_conv_weight(w, 24)
+        assert K.packed_conv_weight(w, 24) is first
+    torch.testing.assert_close(first, K.pack_conv_weight(w, 24), atol=0,
+                               rtol=0)
+
+
+def test_resnet_twin_tiled_gn2_matches_direct_and_pallas():
+    """GN2's statistics by the kernel's route: 192 channels in tiles of 64
+    (groups of 6 straddle them) and 2 x 12 x 12 pixels in tiles of 128
+    (straddling the images)."""
+    cin, cout, temb, eps = 64, 192, 48, 1e-5
+    plan = K.resnet_plan(2, cin, cout, 12, 12, 32, True)
+    assert plan.bn == 64 and plan.segs > 64 // 6 and plan.slots == 2
+    params = _block_params(cin, cout, temb, seed=9)
+    rng = np.random.default_rng(33)
+    x = rng.standard_normal((2, 12, 12, cin), dtype=np.float32)
+    trow = rng.standard_normal((2, cout), dtype=np.float32)
+    want = JK._resnet_diff(params, jnp.asarray(x), jnp.asarray(trow), 32, eps)
+    head, tail = _twin_args(params)
+    args = (nchw(x), *head, torch.from_numpy(trow), *tail)
+    tiled = K.resnet_fused_reference(*args, num_groups=32, eps=eps,
+                                     gn2_tiles=(K.RESNET_BM, plan.bn))
+    direct = K.resnet_fused_reference(*args, num_groups=32, eps=eps)
+    torch.testing.assert_close(tiled, direct, atol=TILED_TOL, rtol=TILED_TOL)
+    np.testing.assert_allclose(tiled.permute(0, 2, 3, 1).numpy(),
+                               np.asarray(want), atol=PALLAS_TOL,
+                               rtol=PALLAS_TOL)
+    # the fault leaves tile (0, 0)'s partials out: GN2's affine moves
+    affine = K.resnet_gn2_affine_reference(*args[:8], num_groups=32, eps=eps)
+    dropped = K.resnet_gn2_affine_reference(*args[:8], num_groups=32, eps=eps,
+                                            fault="gn2_tile_dropped")
+    assert (dropped - affine).abs().max().item() > 1e-3

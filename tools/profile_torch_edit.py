@@ -54,9 +54,10 @@ CATEGORIES = [
      ("twoway_shared_partials",)),
     ("SAM upscale + hypernetwork (csrc/sam_upscale.cu)",
      ("upscale_kernel", "upscale_persistent_kernel")),
-    ("fused resnet (csrc/resnet_fused.cu)",
-     ("::conv_kernel<", "::stats_kernel<", "::finalize_kernel<",
-      "::store_kernel<")),
+    ("fused resnet, convs (csrc/resnet_fused.cu)", ("::conv_kernel<",)),
+    ("fused resnet, statistics and normalise passes (csrc/resnet_fused.cu)",
+     ("::stats_x_kernel<", "::norm_x_kernel<", "::tile_stats_kernel<",
+      "::fin2_kernel<", "::norm_h_kernel<", "::store_out_kernel<")),
     ("GroupNorm+SiLU (csrc/group_norm.cu)", ("::gn_kernel<",)),
     ("cuDNN layout NCHW->NHWC", ("nchwToNhwc",)),
     ("cuDNN layout NHWC->NCHW", ("nhwcToNchw",)),
