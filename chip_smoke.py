@@ -14,10 +14,11 @@ non-zero, and nothing is caught:
      stated bound, the errors of planted faults that the bound must reject,
      and both times (CUDA events, after warm-up): flash attention at the
      UNet's, the VAE's and SAM's shapes (global and windowed encoder
-     layers), each also beside its bound (least time for the same work)
-     and PyTorch's scaled_dot_product_attention at the same shape and
-     scale, with the SDPA backend that ran named at the UNet's 64x64 self
-     and the VAE's shapes, GroupNorm+SiLU at UNet and VAE shapes that take
+     layers) and SD2.1's (64-wide heads), each also beside its bound
+     (least time for the same work) and PyTorch's
+     scaled_dot_product_attention at the same shape and scale, with the
+     SDPA backend that ran named at the UNet's 64x64 self and the VAE's
+     shapes, GroupNorm+SiLU at UNet and VAE shapes that take
      each of its launch plans (one CTA, a cluster, streamed through L2),
      each with its plan, blocks per SM, bound, host time per call and, where
      there is no SiLU, F.group_norm's time, SAM's two-way transformer at
@@ -34,7 +35,10 @@ non-zero, and nothing is caught:
      fp32 on the CPU (plain twins), and in bf16 on the GPU against the fp32
      CPU edit, at most twice as far from it as the bf16 CPU edit; the same
      with every resnet fused (EA_RESNET_FUSED=1), and for a tiny txt2img
-     with the switch on; then the same for a small SAM with the published
+     with the switch on; three tiny edits of the rest of the edit surface in
+     fp32, GPU against CPU, with the same initial and per-step noises: SD2.1
+     with DDIM at eta 0.5 and "mix", SD1.5 with a scale map and guess mode,
+     and the 9-channel "unet9" edit; then a small SAM with the published
      decoder widths (so the decoder kernels launch): a 4x4-point AMG with
      the quality filters open and one click;
   4. full width, edit only: SD1.5 UNet + two ControlNets (zero convs drawn
@@ -44,6 +48,18 @@ non-zero, and nothing is caught:
      512^2 edits with a supplied condition map at the reference UI's
      default point (2 samples, 30 UniPC steps, CFG 9), the switch off and
      on in turns; one txt2img request with the switch on;
+  4b. full width, the rest of the edit surface, bf16, random weights from a
+     seed: SD2.1 (UNet, two ControlNets, VAE, the 23-layer OpenCLIP-H text
+     tower, v-prediction) with one denoise step (batch 4, t = 500) through
+     kernel B and through its plain twin, each against the fp32 step, then a
+     warm-up and requests through ``EditAnythingEditor.process`` with a
+     supplied condition map (512^2, 2 samples, 30 steps, CFG 9), two of each
+     in turns: DDIM at eta 0.5 with the scale map and alpha mixing 0.5, and
+     UniPC in guess mode with blend; the 9-channel SD1.5 inpainting UNet
+     with a warm-up and two "unet9" requests through ``EditPipeline``; each
+     request with its
+     seconds, peak memory, kernel B's and A's launches (from 0 just before
+     it), non-finite values (0) and output shape;
   5. the main path: SAM ViT-H (random bf16 weights) and the same bundle in
      ``EditAnythingEditor``; one warm-up and three timed
      ``process(condition_image=None)`` requests (SAM at 1024^2, the AMG,
@@ -60,6 +76,7 @@ checks that no module of either was loaded.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -97,7 +114,9 @@ PEAK_BYTES = 3.35e12
 # single-head mid attention (B = 2); SAM ViT-H's encoder at 1024^2 with the
 # rel-pos bias folded into q/k (scale 1): a global layer and the 25 14x14
 # windows of a windowed layer, whose 108 q/k columns the model pads to 112
-# (16-byte rows), also unpadded for comparison (None: 1/sqrt(Dqk))
+# (16-byte rows), also unpadded for comparison (None: 1/sqrt(Dqk)); SD2.1's
+# UNet and ControlNets at 512^2 with 2 samples under CFG: 64-wide heads, 5 /
+# 10 / 20 / 20 per level, cross-attention over the 77 tokens of its context
 ATTN_SHAPES = [
     ("unet 64x64 self", 4, 8, 4096, 4096, 40, 40, None),
     ("unet 64x64 cross", 4, 8, 4096, 77, 40, 40, None),
@@ -111,6 +130,11 @@ ATTN_SHAPES = [
     ("sam global 64x64", 1, 16, 4096, 4096, 208, 80, 1.0),
     ("sam window 14x14", 25, 16, 196, 196, 112, 80, 1.0),
     ("sam window 14x14 unpadded", 25, 16, 196, 196, 108, 80, 1.0),
+    ("sd21 64x64 self", 4, 5, 4096, 4096, 64, 64, None),
+    ("sd21 64x64 cross", 4, 5, 4096, 77, 64, 64, None),
+    ("sd21 32x32 self", 4, 10, 1024, 1024, 64, 64, None),
+    ("sd21 16x16 self", 4, 20, 256, 256, 64, 64, None),
+    ("sd21 8x8 self", 4, 20, 64, 64, 64, 64, None),
 ]
 # (label, NCHW shape, eps, SiLU): in bf16 one CTA per slab at most UNet
 # shapes, clusters of 2 (UNet 64x64x960), 8 and 16 CTAs (the VAE) holding
@@ -193,6 +217,17 @@ TINY_IMAGE_LEVELS = 2
 # rounding alone moves the tiny edit's latents by ~1 and its images by ~12
 # levels, so the bound is stated against that distance, measured in the run.
 TINY_BF16_RATIO = 2
+# the rest of the edit surface at tiny widths, held as the tiny edit is in
+# fp32: (family of random_bundle, inpaint mode, EditPipeline arguments)
+TINY_MODE_CASES = {
+    "sd21 ddim eta 0.5, mix": ("sd21", "mix", dict(sampler="ddim", eta=0.5,
+                                                   alpha_weight=0.5,
+                                                   alignment_ratio=0.75)),
+    "sd15 scale map, guess mode": ("sd15", "blend", dict(
+        scale_map=np.linspace(0.0, 1.0, 64 * 64, dtype=np.float32)
+        .reshape(64, 64), guess_mode=True, alignment_ratio=0.75)),
+    "sd15 unet9": ("sd15_inpaint", "unet9", {}),
+}
 # the fused resnet block: (label, N, Cin, Cout, time embedding, H = W, eps)
 # at 512^2 with 2 samples under CFG (UNet batch 4) and the VAE at batch 2
 RESNET_SHAPES = [
@@ -228,6 +263,7 @@ STEP_RATIO = 2
 FULL_WIDTH_REQUESTS = 2     # edit-only requests per switch setting (phase 4)
 MAIN_PATH_REQUESTS = 3      # SAM + edit requests (phase 5)
 FUSED_MAIN_PATH_REQUESTS = 2   # the same with every resnet fused (phase 5)
+MODE_REQUESTS = 2           # timed requests of each case of phase 4b
 
 
 def max_err(got, want) -> float:
@@ -1009,6 +1045,8 @@ def phase_tiny_parity():
     the bf16 CPU run."""
     for kind, fused in (("edit", False), ("edit", True), ("txt2img", True)):
         tiny_parity(kind, fused)
+    for case in TINY_MODE_CASES:
+        tiny_mode_parity(case)
 
 
 def tiny_parity(kind: str, fused: bool):
@@ -1065,6 +1103,45 @@ def tiny_parity(kind: str, fused: bool):
           f"{what} bf16 latents: {lat_k} > {TINY_BF16_RATIO} x {lat_p}")
     check(img_k <= TINY_BF16_RATIO * img_p,
           f"{what} bf16 images: {img_k} > {TINY_BF16_RATIO} x {img_p} levels")
+
+
+def tiny_mode_parity(case: str):
+    """One edit of the rest of the edit surface on a tiny bundle of its
+    family, fp32 on the GPU (kernels) against fp32 on the CPU (plain twins),
+    with the same weights and the same initial, "mix" and eta noises."""
+    from editanything_tpu_torch.core import flash_attention as FA
+    from editanything_tpu_torch.pipelines.bundle import random_bundle
+    from editanything_tpu_torch.pipelines.edit import EditPipeline
+    family, mode, kw = TINY_MODE_CASES[case]
+    rng = np.random.default_rng(8)
+    args = dict(image=_checker_image(64, 64), mask=_square_mask(64, 16, 48),
+                prompt="a red cat", condition_image=_checker_image(64, 64),
+                negative_prompt="blurry", num_samples=2, image_resolution=64,
+                num_steps=4, guidance_scale=9.0, control_scale=0.5,
+                noise=rng.standard_normal((2, 8, 8, 4)).astype(np.float32),
+                mix_noise=rng.standard_normal((2, 8, 8, 4)).astype(np.float32),
+                step_noise=rng.standard_normal((4, 2, 4, 8, 8)).astype(np.float32),
+                eta_noise=rng.standard_normal((4, 2, 4, 8, 8)).astype(np.float32),
+                **kw)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        b = random_bundle(tiny=True, device="cpu", family=family,
+                          generator=torch.Generator().manual_seed(1)).to(device)
+        pipe = EditPipeline(b, inpaint_mode=mode)
+        before = FA.flash_attention.launches
+        outs[device] = (pipe(**args, return_latents=True), pipe(**args))
+        launched = FA.flash_attention.launches - before
+    check(launched > 0, f"tiny {case}: flash_attention was not launched")
+    lat_err = float(np.abs(outs["cuda"][0] - outs["cpu"][0]).max())
+    img_err = int(np.abs(outs["cuda"][1].astype(np.int32)
+                         - outs["cpu"][1].astype(np.int32)).max())
+    print(f"[parity] tiny {case}, fp32, CUDA (kernels) vs CPU (plain twins): "
+          f"latents max_abs_err {lat_err:.3e} <= {TINY_LATENT_TOL:g} "
+          f"(|latents| <= {float(np.abs(outs['cpu'][0]).max()):.2f}); images "
+          f"max diff {img_err} <= {TINY_IMAGE_LEVELS} levels; {launched} "
+          f"flash_attention launches")
+    check(lat_err <= TINY_LATENT_TOL, f"tiny {case}: latents differ by {lat_err}")
+    check(img_err <= TINY_IMAGE_LEVELS, f"tiny {case}: images differ by {img_err}")
 
 
 def phase_sam_parity():
@@ -1154,36 +1231,56 @@ def launch_counters():
             K.sam_upscale_hyper, K.resnet_fused)
 
 
+def step_inputs(context_dim: int, seed: int):
+    """Inputs of one full-width denoise step at 512^2 with 2 samples under
+    CFG: latents (4, 4, 64, 64), t = 500, a 77-token context and both
+    ControlNets' conditions."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    lat = torch.randn(4, 4, 64, 64, generator=g, device="cuda")
+    ctx = torch.randn(4, 77, context_dim, generator=g, device="cuda")
+    conds = [torch.rand(4, 3, 512, 512, generator=g, device="cuda")
+             for _ in range(2)]
+    t = torch.full((4,), 500, dtype=torch.int32, device="cuda")
+    return lat, t, ctx, conds
+
+
+def denoise_step(unet, cns, inputs, dtype):
+    """Both ControlNets (scales 0.5, 1.0) and the UNet at one timestep;
+    the model output in fp32."""
+    from editanything_tpu_torch.models import controlnet as CN
+    lat, t, ctx, conds = inputs
+    with torch.inference_mode():
+        down, mid = CN.multi_controlnet_apply(
+            cns, lat.to(dtype), t, ctx.to(dtype),
+            [c.to(dtype) for c in conds], [0.5, 1.0])
+        return unet(lat.to(dtype), t, ctx.to(dtype),
+                    down_block_residuals=down,
+                    mid_block_residual=mid).float()
+
+
+def fp32_step(bundle, inputs):
+    """The same step with fp32 copies of the bundle's bf16 weights."""
+    import copy
+    cns = bundle.controlnet_modules(("sam", "inpaint"))
+    unet32 = copy.deepcopy(bundle.unet).float()
+    want = denoise_step(unet32, [copy.deepcopy(c).float() for c in cns],
+                        inputs, torch.float32)
+    del unet32
+    torch.cuda.empty_cache()
+    return want
+
+
 def denoise_step_check(bundle):
     """One full-width denoise step (both ControlNets + the UNet, batch 4 =
     2 samples x CFG, t = 500) in bf16 with the resnets composed and fused,
     each against the same step in fp32 (the same bf16 weights, composed)."""
-    import copy
-    from editanything_tpu_torch.models import controlnet as CN
-    g = torch.Generator("cuda").manual_seed(21)
-    lat = torch.randn(4, 4, 64, 64, generator=g, device="cuda")
-    ctx = torch.randn(4, 77, 768, generator=g, device="cuda")
-    conds = [torch.rand(4, 3, 512, 512, generator=g, device="cuda")
-             for _ in range(2)]
-    t = torch.full((4,), 500, dtype=torch.int32, device="cuda")
-
-    def step(unet, cns, dtype):
-        with torch.inference_mode():
-            down, mid = CN.multi_controlnet_apply(
-                cns, lat.to(dtype), t, ctx.to(dtype),
-                [c.to(dtype) for c in conds], [0.5, 1.0])
-            return unet(lat.to(dtype), t, ctx.to(dtype),
-                        down_block_residuals=down,
-                        mid_block_residual=mid).float()
+    inputs = step_inputs(768, 21)
     cns = bundle.controlnet_modules(("sam", "inpaint"))
-    composed = step(bundle.unet, cns, torch.bfloat16)
+    composed = denoise_step(bundle.unet, cns, inputs, torch.bfloat16)
     with_fused_resnets(True)
-    fused = step(bundle.unet, cns, torch.bfloat16)
+    fused = denoise_step(bundle.unet, cns, inputs, torch.bfloat16)
     with_fused_resnets(False)
-    unet32 = copy.deepcopy(bundle.unet).float()
-    want = step(unet32, [copy.deepcopy(c).float() for c in cns], torch.float32)
-    del unet32
-    torch.cuda.empty_cache()
+    want = fp32_step(bundle, inputs)
     d_comp, d_fused = max_err(composed, want), max_err(fused, want)
     print(f"[full] one denoise step (UNet + 2 ControlNets, batch 4, bf16) "
           f"against the fp32 composed step: composed resnets max_abs_err "
@@ -1276,6 +1373,155 @@ def phase_full_width():
           f"{out.dtype}, {gen.last_nonfinite} non-finite values")
     check(n_resnet > 0, "txt2img did not launch resnet_fused")
     return bundle
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Every unmasked ``layers.attention`` call through kernel B's plain
+    twin while the block runs: the baseline of the SD2.1 step check. The
+    port itself has no such switch; the launch counter shows that the
+    kernel did not run."""
+    from editanything_tpu_torch.core import layers as L
+    kernel_route = L.attention
+    L.attention = lambda q, k, v, *, scale=None, mask=None: \
+        L.attention_reference(q, k, v, scale=scale, mask=mask)
+    try:
+        yield
+    finally:
+        L.attention = kernel_route
+
+
+def sd21_step_check(bundle):
+    """One SD2.1 denoise step at published widths (both ControlNets + the
+    UNet, batch 4 = 2 samples x CFG, t = 500, context 1024, 64-wide heads)
+    in bf16 through kernel B and through its plain twin, each against the
+    same step in fp32."""
+    from editanything_tpu_torch.core import flash_attention as FA
+    inputs = step_inputs(1024, 23)
+    cns = bundle.controlnet_modules(("sam", "inpaint"))
+    before = FA.flash_attention.launches
+    kernel = denoise_step(bundle.unet, cns, inputs, torch.bfloat16)
+    launched = FA.flash_attention.launches - before
+    with plain_attention():
+        twin = denoise_step(bundle.unet, cns, inputs, torch.bfloat16)
+    check(FA.flash_attention.launches == before + launched,
+          "kernel B ran in the plain-twin step")
+    want = fp32_step(bundle, inputs)
+    d_kernel, d_twin = max_err(kernel, want), max_err(twin, want)
+    print(f"[sd21] one denoise step (UNet + 2 ControlNets, batch 4, bf16, "
+          f"{launched} flash_attention launches) against the fp32 step: "
+          f"kernel B max_abs_err {d_kernel:.3e}, plain attention twin "
+          f"{d_twin:.3e}; bound {STEP_RATIO}x the twin's (|v| <= "
+          f"{want.abs().max().item():.2f})")
+    check(launched > 0, "the SD2.1 step did not launch flash_attention")
+    check(d_kernel <= STEP_RATIO * d_twin,
+          f"SD2.1 step with kernel B {d_kernel} > {STEP_RATIO} x twin {d_twin}")
+
+
+def timed_request(tag: str, what: str, owner, fn, **kwargs):
+    """(uint8 images, launches) of one request ``fn(**kwargs)`` on the host
+    clock, the device synchronised, every launch counter set to 0 just
+    before it; prints seconds, peak memory, the launches of kernels B and
+    A, the non-finite values before the uint8 cast (``owner``'s
+    ``last_nonfinite``) and the output's shape, and fails unless there are
+    none and the output is (2, 512, 512, 3) uint8."""
+    counters = launch_counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out, seconds = _synced(fn, **kwargs)
+    launches = {c.__name__: c.launches for c in counters}
+    if isinstance(out, tuple):                 # EditAnythingEditor.process
+        out = np.stack(out[1])
+    nonfinite = owner.last_nonfinite
+    print(f"[{tag}] {what}: {seconds:.3f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"flash_attention {launches['flash_attention']}, group_norm_silu "
+          f"{launches['group_norm_silu']}; {nonfinite} non-finite values; "
+          f"output {out.shape} {out.dtype}")
+    check(out.shape == (2, 512, 512, 3) and out.dtype == np.uint8,
+          f"{what}: returned {out.shape} {out.dtype}")
+    check(nonfinite == 0, f"{what}: {nonfinite} non-finite values")
+    for name in ("flash_attention", "group_norm_silu"):
+        check(launches[name] > 0, f"{what}: {name} was not launched")
+    return out, launches
+
+
+def phase_full_width_modes() -> dict:
+    """The rest of the edit surface at published widths, bf16, random
+    weights from seed 0: SD2.1 (one denoise step against fp32, then two
+    requests through ``EditAnythingEditor.process`` with a supplied
+    condition map) and the 9-channel SD1.5 inpainting UNet (one request
+    through ``EditPipeline``), each after a warm-up request, MODE_REQUESTS
+    timed requests of each case in turns. Returns each case's launches per
+    request."""
+    from editanything_tpu_torch.pipelines.bundle import random_bundle
+    from editanything_tpu_torch.pipelines.edit import EditPipeline
+    from editanything_tpu_torch.pipelines.editor import EditAnythingEditor
+
+    def build(family, what):
+        t0 = time.perf_counter()
+        b = random_bundle(tiny=False, dtype=torch.bfloat16, device="cuda",
+                          family=family,
+                          generator=torch.Generator("cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        n = sum(p.numel() for m in [b.unet, b.vae, b.text]
+                + [net for _, net in b.controlnets.values()]
+                for p in m.parameters())
+        print(f"[{family}] {what}, bf16, random weights (seed 0): "
+              f"{n / 1e9:.3f} B parameters, built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        return b
+
+    launches = {}
+    b21 = build("sd21", "SD2.1 UNet + 2 ControlNets + VAE + OpenCLIP-H text "
+                "tower (23 layers), v-prediction")
+    sd21_step_check(b21)
+    editor = EditAnythingEditor(b21)
+    request = dict(image=_checker_image(512, 512),
+                   mask=_square_mask(512, 128, 384),
+                   prompt="a red cat sitting on a sofa", a_prompt="best quality",
+                   n_prompt="blurry, low quality",
+                   condition_image=_id_map(512, 512, 3), num_samples=2,
+                   image_resolution=512, ddim_steps=30, scale=9.0,
+                   control_scale=0.5)
+    cases = [("sd21 ddim eta 0.5, scale map, alpha mixing 0.5",
+              dict(sampler="ddim", eta=0.5, use_scale_map=True,
+                   use_alpha_mixing=True, alpha_weight=0.5)),
+             ("sd21 unipc, guess mode, blend", dict(guess_mode=True))]
+    seconds = _synced(editor.process, **request, **cases[0][1], seed=400,
+                      generator=torch.Generator("cuda").manual_seed(400))[1]
+    print(f"[sd21] warm-up request: {seconds:.3f} s")
+    for r in range(MODE_REQUESTS):
+        for c, (what, kw) in enumerate(cases):          # in turns
+            seed = 401 + 2 * r + c
+            counts = timed_request(
+                "sd21", f"{what}, process, 512^2, 2 samples, 30 steps, CFG 9",
+                editor, editor.process, **request, **kw, seed=seed,
+                generator=torch.Generator("cuda").manual_seed(seed))[1]
+            check(launches.setdefault(what, counts) == counts,
+                  f"{what}: launch counts differ between requests")
+    del editor, b21
+    torch.cuda.empty_cache()
+
+    b9 = build("sd15_inpaint", "SD1.5 inpainting UNet (9 input channels) + "
+               "2 ControlNets + VAE + CLIP-L")
+    pipe = EditPipeline(b9, controls=("sam", "inpaint"), inpaint_mode="unet9")
+    edit = full_width_request()
+    seconds = _synced(pipe, **edit,
+                      generator=torch.Generator("cuda").manual_seed(410))[1]
+    print(f"[sd15_inpaint] warm-up request: {seconds:.3f} s")
+    what = "sd15 unet9"
+    for r in range(MODE_REQUESTS):
+        counts = timed_request(
+            "sd15_inpaint", f"{what}, EditPipeline, 512^2, 2 samples, 30 "
+            "UniPC steps, CFG 9", pipe, pipe, **edit,
+            generator=torch.Generator("cuda").manual_seed(411 + r))[1]
+        check(launches.setdefault(what, counts) == counts,
+              f"{what}: launch counts differ between requests")
+    del pipe, b9
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _synced(fn, *args, **kwargs):
@@ -1423,6 +1669,7 @@ def main() -> int:
         sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
     smi = phase_device()
     headline = phase_kernels()
     phase_sam_kernels(headline)
@@ -1430,6 +1677,7 @@ def main() -> int:
     phase_tiny_parity()
     phase_sam_parity()
     bundle = phase_full_width()
+    mode_launches = phase_full_width_modes()
     launches = phase_main_path(bundle)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "editanything_tpu"))
@@ -1450,13 +1698,16 @@ def main() -> int:
                "max_abs_err": err, "ms": ms, "plain_ms": plain,
                "bound_ms": least, "bound_by": by,
                "library_ms": headline.get(f"{name} library"),
-               "shape": f"{label}, bf16"}
+               "shape": f"{label}, bf16",
+               "launches_by_path": {what: counts[name] for what, counts
+                                    in mode_launches.items()}}
         if name == "resnet_fused":
             row["composed_ms"] = headline["resnet_fused composed"]
             (row["cudnn_convs_ms"],
              row["cudnn_convs_channels_last_ms"]) = headline[
                  "resnet_fused cudnn convs"]
         rows.append(row)
+    print(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

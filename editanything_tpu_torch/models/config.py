@@ -44,6 +44,18 @@ def sd15_unet() -> UNetConfig:
     return UNetConfig()
 
 
+def sd15_inpaint_unet() -> UNetConfig:
+    return dataclasses.replace(sd15_unet(), in_channels=9)
+
+
+def sd21_unet() -> UNetConfig:
+    """SD2.1: context 1024, 64-wide heads (5/10/20/20 per block), linear
+    transformer projections."""
+    return UNetConfig(cross_attention_dim=1024,
+                      attention_head_dim=(5, 10, 20, 20),
+                      use_linear_projection=True)
+
+
 @dataclasses.dataclass(frozen=True)
 class ControlNetConfig:
     """ControlNet = UNet encoder copy + hint embedding + zero convs."""
@@ -85,3 +97,11 @@ class CLIPTextConfig:
 
 def clip_vit_l() -> CLIPTextConfig:
     return CLIPTextConfig()
+
+
+def openclip_vit_h() -> CLIPTextConfig:
+    """SD2.1's text tower: OpenCLIP ViT-H's penultimate output, kept as 23
+    layers with the final LayerNorm (layer_skip 0), gelu."""
+    return CLIPTextConfig(hidden_size=1024, intermediate_size=4096,
+                          num_layers=23, num_heads=16, hidden_act="gelu",
+                          layer_skip=0)

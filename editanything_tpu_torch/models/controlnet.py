@@ -1,11 +1,11 @@
 """ControlNet: the UNet encoder copy, hint embedding and zero convs (NCHW).
 
 Counterpart of ``editanything_tpu/models/controlnet.py``: the one-shot hint
-stack (``_hint_embedding_oneshot``, :93-101), the scalar conditioning scale
-(``_scale_residual``, :192-203), ``context_kv``, ``apply`` (here
-``forward``) and ``multi_controlnet_apply`` (:291-317). Not ported yet
-(ROADMAP Queue 1 items 5 and 10): per-pixel scale maps, guess mode and the
-tiled hint stack.
+stack (``_hint_embedding_oneshot``, :93-101), the scalar and per-pixel
+conditioning scales (``_resize_corners``, ``_scale_residual``, :174-204),
+guess mode's residual scales (:278-283), ``context_kv``, ``apply`` (here
+``forward``) and ``multi_controlnet_apply`` (:291-317). Not ported yet: the
+tiled hint stack (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -50,6 +50,32 @@ def _as_dtype_scalar(scale: float, dtype) -> float:
     return float(torch.tensor(float(scale), dtype=dtype))
 
 
+def _resize_corners(img, h: int, w: int):
+    """(B, Hi, Wi) -> (B, h, w): bilinear with align_corners=True (output
+    pixel i samples source coordinate i * (in - 1) / (out - 1)), no
+    antialias."""
+    if tuple(img.shape[-2:]) == (h, w):
+        return img
+    return F.interpolate(img[:, None], size=(h, w), mode="bilinear",
+                         align_corners=True)[:, 0]
+
+
+def _scale_residual(res, scale: float, scale_map=None):
+    """The scalar conditioning scale and, when given, the per-pixel map
+    (B, Hm, Wm), resized to the residual's size in fp32, on one residual."""
+    out = res * _as_dtype_scalar(scale, res.dtype)
+    if scale_map is not None:
+        m = _resize_corners(scale_map.float(), *res.shape[-2:])
+        out = out * m[:, None].to(res.dtype)
+    return out
+
+
+def guess_mode_scales(n: int):
+    """logspace(-1, 0, n + 1) as float32, the weakest at the shallowest of
+    the n down residuals, the last for the mid residual."""
+    return torch.logspace(-1.0, 0.0, n + 1, dtype=torch.float64).float()
+
+
 class ControlNetModel(nn.Module):
     def __init__(self, cfg: ControlNetConfig):
         super().__init__()
@@ -80,10 +106,13 @@ class ControlNetModel(nn.Module):
 
     def forward(self, sample, timesteps, encoder_hidden_states,
                 controlnet_cond=None, *, conditioning_scale: float = 1.0,
+                conditioning_scale_map=None, guess_mode: bool = False,
                 hint_embedding=None, ctx_kv=None):
         """Returns (down residuals tuple, mid residual). ``hint_embedding``
         is the precomputed hint stack output (loop-invariant across steps);
-        without it ``controlnet_cond`` (B, 3, 8h, 8w) in [0, 1] is encoded."""
+        without it ``controlnet_cond`` (B, 3, 8h, 8w) in [0, 1] is encoded.
+        ``conditioning_scale_map`` (B, Hm, Wm) scales every residual per
+        pixel; ``guess_mode`` scales them by ``guess_mode_scales`` first."""
         ucfg = self.cfg.unet
         ctx_kv = ctx_kv or {}
         temb = U.time_embed(self, ucfg, timesteps, sample.dtype)
@@ -97,25 +126,39 @@ class ControlNetModel(nn.Module):
         down = [conv(r) for conv, r in zip(self.controlnet_down_blocks,
                                            residuals)]
         mid = self.controlnet_mid_block(h)
-        s = _as_dtype_scalar(conditioning_scale, mid.dtype)
-        return tuple(r * s for r in down), mid * s
+        if guess_mode:
+            # float32 scales promote the residuals to float32, as JAX's
+            # float32 logspace does, before the conditioning scale and map
+            scales = guess_mode_scales(len(down)).tolist()
+            down = [r.float() * s for r, s in zip(down, scales)]
+            mid = mid.float() * scales[-1]
+        return (tuple(_scale_residual(r, conditioning_scale,
+                                      conditioning_scale_map) for r in down),
+                _scale_residual(mid, conditioning_scale,
+                                conditioning_scale_map))
 
 
 def multi_controlnet_apply(controlnets: Sequence[ControlNetModel], sample,
                            timesteps, encoder_hidden_states, conds, scales,
+                           scale_map_list: Optional[Sequence] = None,
+                           guess_mode: bool = False,
                            hint_embeddings: Optional[Sequence] = None,
                            ctx_kvs: Optional[Sequence] = None):
     """Sum the residual stacks of several ControlNets ([SAM, inpaint] on
-    the edit path)."""
+    the edit path); ``scale_map_list`` holds one map or None per net."""
     n = len(controlnets)
+    scale_map_list = scale_map_list or [None] * n
     hint_embeddings = hint_embeddings or [None] * n
     ctx_kvs = ctx_kvs or [None] * n
     conds = conds or [None] * n
     down_acc = mid_acc = None
-    for net, cond, s, hint, kv in zip(controlnets, conds, scales,
-                                      hint_embeddings, ctx_kvs):
+    for net, cond, s, smap, hint, kv in zip(controlnets, conds, scales,
+                                            scale_map_list, hint_embeddings,
+                                            ctx_kvs):
         down, mid = net(sample, timesteps, encoder_hidden_states, cond,
-                        conditioning_scale=s, hint_embedding=hint, ctx_kv=kv)
+                        conditioning_scale=s, conditioning_scale_map=smap,
+                        guess_mode=guess_mode, hint_embedding=hint,
+                        ctx_kv=kv)
         if down_acc is None:
             down_acc, mid_acc = list(down), mid
         else:

@@ -1,11 +1,12 @@
-"""SD UNet (4-channel input), diffusers module names, NCHW.
+"""SD UNet (4-channel input, 9 for the inpainting UNet), diffusers module
+names, NCHW.
 
 Counterpart of ``editanything_tpu/models/unet.py``: ``time_embed``,
 ``context_kv``, ``encode``, ``middle``, ``decode`` and ``forward`` (the JAX
 ``apply``), with ControlNet residual injection. The down and mid blocks are
 shared with the ControlNet (models/controlnet.py), as the JAX package
 shares its encoder functions. Reference-only control hooks are not ported
-(ROADMAP Queue 1 item 9).
+(ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations

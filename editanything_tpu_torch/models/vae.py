@@ -3,7 +3,7 @@
 Counterpart of ``editanything_tpu/models/vae.py``: ``encode`` (to a
 ``GaussianPosterior``), ``decode``, ``encode_to_latents`` (posterior mode)
 and ``decode_from_latents``, one-shot. The tiled encode/decode for images
-above 2048^2 is not ported yet (ROADMAP Queue 1 item 10).
+above 2048^2 is not ported yet (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations

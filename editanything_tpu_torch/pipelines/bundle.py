@@ -23,6 +23,7 @@ from editanything_tpu_torch.models.controlnet import ControlNetModel
 from editanything_tpu_torch.models.sam import LayerNorm2d, Sam, SAMConfig
 from editanything_tpu_torch.models.unet import UNet2DConditionModel
 from editanything_tpu_torch.models.vae import AutoencoderKL
+from editanything_tpu_torch.samplers.schedule import make_schedule
 from editanything_tpu_torch.text.tokenizer import tiny_tokenizer
 
 
@@ -48,7 +49,6 @@ class ModelBundle:
 
     def noise_schedule(self):
         if self.schedule is None:
-            from editanything_tpu_torch.samplers.schedule import make_schedule
             self.schedule = make_schedule()
         return self.schedule
 
@@ -95,21 +95,42 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
-def _configs(tiny: bool):
+FAMILIES = ("sd15", "sd15_inpaint", "sd21")
+
+
+def _configs(tiny: bool, family: str):
+    """(UNet, VAE, text, ControlNets' UNet) configs of a family: tiny at
+    test widths, else the published ones. The inpainting UNet takes 9
+    input channels; its ControlNets keep 4."""
+    if family not in FAMILIES:
+        raise ValueError(f"unknown family {family!r}; one of {FAMILIES}")
+    sd21 = family == "sd21"
     if tiny:
         ucfg = C.UNetConfig(
             block_out_channels=(32, 64), layers_per_block=1,
-            cross_attention_dim=32, attention_head_dim=(2, 2),
+            cross_attention_dim=48 if sd21 else 32,
+            attention_head_dim=(2, 4) if sd21 else (2, 2),
+            use_linear_projection=sd21,
             down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
             up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
             norm_num_groups=8)
         vcfg = C.VAEConfig(block_out_channels=(16, 32, 32, 32),
                            layers_per_block=1, norm_num_groups=8)
-        tcfg = C.CLIPTextConfig(vocab_size=2000, hidden_size=32,
-                                intermediate_size=64, num_layers=2,
-                                num_heads=4, max_position_embeddings=8)
-        return ucfg, vcfg, tcfg
-    return C.sd15_unet(), C.VAEConfig(), C.clip_vit_l()
+        tcfg = (C.CLIPTextConfig(vocab_size=2000, hidden_size=48,
+                                 intermediate_size=192, num_layers=2,
+                                 num_heads=4, max_position_embeddings=16,
+                                 hidden_act="gelu") if sd21 else
+                C.CLIPTextConfig(vocab_size=2000, hidden_size=32,
+                                 intermediate_size=64, num_layers=2,
+                                 num_heads=4, max_position_embeddings=8))
+    else:
+        ucfg = C.sd21_unet() if sd21 else C.sd15_unet()
+        vcfg = C.VAEConfig()
+        tcfg = C.openclip_vit_h() if sd21 else C.clip_vit_l()
+    cn_ucfg = ucfg
+    if family == "sd15_inpaint":
+        ucfg = dataclasses.replace(ucfg, in_channels=9)
+    return ucfg, vcfg, tcfg, cn_ucfg
 
 
 def _target(device) -> torch.device:
@@ -122,32 +143,38 @@ def _target(device) -> torch.device:
 
 
 def random_bundle(*, tiny: bool = True, dtype=torch.float32, device="cuda",
-                  generator: Optional[torch.Generator] = None) -> ModelBundle:
+                  generator: Optional[torch.Generator] = None,
+                  family: str = "sd15") -> ModelBundle:
     """Randomly initialised bundle with ControlNets "sam" and "inpaint", for
-    smoke runs: tiny=True at test widths (those of the JAX package's
-    ``random_bundle``), tiny=False at SD1.5's published widths, with the
-    tiny test tokenizer. Built on the GPU unless `device` says otherwise
-    (raises when there is none). `generator` lives on `device` (default:
-    seed 0 there). Unlike a fresh ControlNet, whose zero convs start at
-    zero, every conv is drawn, so the ControlNet residuals reach the UNet."""
+    smoke runs: tiny=True at test widths (SD1.5's those of the JAX package's
+    ``random_bundle``, SD2.1's those of its tests/test_sd21.py), tiny=False
+    at the published widths, with the tiny test tokenizer. `family`: "sd15",
+    "sd15_inpaint" (the 9-channel inpainting UNet) or "sd21" (UNet, OpenCLIP
+    ViT-H text tower and a v-prediction schedule on the bundle). Built on
+    the GPU unless `device` says otherwise (raises when there is none).
+    `generator` lives on `device` (default: seed 0 there). Unlike a fresh
+    ControlNet, whose zero convs start at zero, every conv is drawn, so the
+    ControlNet residuals reach the UNet."""
     device = _target(device)
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
-    ucfg, vcfg, tcfg = _configs(tiny)
+    ucfg, vcfg, tcfg, cn_ucfg = _configs(tiny, family)
     unet = init_weights_(_empty(UNet2DConditionModel, ucfg, device, dtype),
                          generator)
     vae = init_weights_(_empty(AutoencoderKL, vcfg, device, dtype), generator)
     text = init_weights_(_empty(CLIPTextModel, tcfg, device, dtype), generator)
     cns = {}
     for name in ("sam", "inpaint"):
-        cn_cfg = C.ControlNetConfig(unet=ucfg)
+        cn_cfg = C.ControlNetConfig(unet=cn_ucfg)
         cns[name] = (cn_cfg, init_weights_(
             _empty(ControlNetModel, cn_cfg, device, dtype), generator))
+    schedule = (make_schedule(prediction_type="v_prediction")
+                if family == "sd21" else None)
     return ModelBundle(unet_cfg=ucfg, vae_cfg=vcfg, text_cfg=tcfg, unet=unet,
                        vae=vae, text=text,
                        tokenizer=tiny_tokenizer(
                            context_length=tcfg.max_position_embeddings),
-                       controlnets=cns, dtype=dtype)
+                       controlnets=cns, dtype=dtype, schedule=schedule)
 
 
 def module_from_tree(cls, cfg, tree: Mapping) -> nn.Module:

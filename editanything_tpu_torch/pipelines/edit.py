@@ -1,13 +1,17 @@
 """The main edit pipeline: inpainting with [SAM control, inpaint control].
 
 Counterpart of ``editanything_tpu/pipelines/edit.py``
-(``make_inpaint_condition``; ``EditPipeline.__call__``, :105-278) for the
-4-channel UNet in "blend" (or "none") mode with UniPC. Images in and out
-are the JAX package's numpy HWC uint8. Two additions: the initial latents
-can be handed in (``noise``, in the JAX package's (B, h, w, 4) layout) or
-drawn from an explicit ``generator``. Not ported yet: per-pixel scale maps,
-reference-only control, "unet9"/"mix" and tile refinement (ROADMAP Queue 1
-items 5, 9 and 10).
+(``make_inpaint_condition``; ``EditPipeline.__call__``, :105-278) in every
+inpaint mode ("none", "blend", "mix", and "unet9" with the 9-channel UNet),
+with UniPC or DDIM (with eta), per-pixel scale maps on the SAM control and
+guess mode. Images in and out are the JAX package's numpy HWC uint8. The
+random draws can be handed in or come from explicit generators: the initial
+latents (``noise``, and for "mix" the noise that re-noises the original
+before the loop, ``mix_noise``, both in the JAX package's (B, h, w, 4)
+layout) or ``generator``; the per-step noises of "mix" and of DDIM's eta
+(``step_noise``, ``eta_noise``, (steps, B, 4, h, w)) or generators seeded
+with seed + 1 and seed + 2. Not ported yet: reference-only control (ROADMAP
+Queue 1 item 4) and tile refinement (item 5).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import torch
 from editanything_tpu_torch.engine.denoise import DenoiseConfig, build_denoiser
 from editanything_tpu_torch.pipelines.bundle import ModelBundle
 from editanything_tpu_torch.pipelines.generate import GenerationPipeline
-from editanything_tpu_torch.samplers.schedule import make_timesteps
+from editanything_tpu_torch.samplers.schedule import add_noise, make_timesteps
 from editanything_tpu_torch.utils.image import HWC3, resize_image, resize_nearest
 
 
@@ -81,29 +85,37 @@ class EditPipeline(GenerationPipeline):
                  num_samples: int = 1, image_resolution: int = 512,
                  num_steps: int = 30, guidance_scale: float = 9.0,
                  control_scale: float = 0.5,
+                 scale_map: Optional[np.ndarray] = None,
                  alignment_ratio: Optional[float] = None,
+                 alpha_weight: float = 0.5,
                  guess_mode: bool = False, sampler: str = "unipc",
-                 seed: int = 0, encoder_interval: int = 1,
+                 eta: float = 0.0, seed: int = 0, encoder_interval: int = 1,
                  return_latents: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 noise=None) -> np.ndarray:
+                 noise=None, mix_noise=None, step_noise=None,
+                 eta_noise=None) -> np.ndarray:
         """Returns (num_samples, H, W, 3) uint8 edited images, or with
         return_latents the final (num_samples, H/8, W/8, 4) fp32 latents.
 
         The initial latents are `noise` when given ((num_samples, H/8, W/8,
         4), the JAX package's layout), else drawn from `generator` (on the
-        bundle's device; default: seeded with `seed`)."""
+        bundle's device; default: seeded with `seed`), which also draws
+        `mix_noise` when "mix" needs it and it is not given. `scale_map`
+        (Hm, Wm) scales the SAM control per pixel. `eta` counts for DDIM
+        only."""
         b = self.bundle
         device = b.device
+        schedule = b.noise_schedule()
         img, m, h, w = self._prep(image, mask, image_resolution)
         dcfg = DenoiseConfig(
             unet=b.unet_cfg, controlnets=b.controlnet_cfgs(self.controls),
             num_steps=num_steps, sampler=sampler, guess_mode=guess_mode,
+            eta=float(eta) if sampler == "ddim" else 0.0,
             inpaint_mode=self.inpaint_mode, alignment_ratio=alignment_ratio,
+            alpha_weight=alpha_weight,
             encoder_interval=encoder_interval)
-        denoise = build_denoiser(
-            dcfg, b.noise_schedule(),
-            make_timesteps(num_steps, spacing=dcfg.timestep_spacing))
+        ts = make_timesteps(num_steps, spacing=dcfg.timestep_spacing)
+        denoise = build_denoiser(dcfg, schedule, ts)
 
         context = self.embed_prompts(prompt, negative_prompt, num_samples)
         # control conditions: SAM map first, inpaint condition last
@@ -118,8 +130,10 @@ class EditPipeline(GenerationPipeline):
 
         image_latents, mask_latents = self._latent_inputs(img, m, h, w,
                                                           num_samples)
-        latents = self.initial_latents(image_latents.shape, noise=noise,
-                                       generator=generator, seed=seed)
+        shape = image_latents.shape
+        if generator is None:
+            generator = torch.Generator(device).manual_seed(seed)
+        latents = self.initial_latents(shape, noise=noise, generator=generator)
 
         # the same tensor re-noises the original in blend mode
         inputs = {
@@ -130,6 +144,25 @@ class EditPipeline(GenerationPipeline):
             "image_latents": image_latents,
             "noise": latents,
         }
+        if self.inpaint_mode == "unet9":
+            inputs["masked_image_latents"] = image_latents
+        if self.inpaint_mode == "mix":
+            inputs["step_noise"] = self.per_step_noise(
+                shape, num_steps, noise=step_noise, seed=seed + 1)
+        if dcfg.eta > 0.0:
+            inputs["eta_noise"] = self.per_step_noise(
+                shape, num_steps, noise=eta_noise, seed=seed + 2)
+        if scale_map is not None:
+            # the per-pixel map applies to the first (SAM) control only
+            inputs["controlnet_scale_maps"] = [
+                self.prepare_scale_map(scale_map, h, w, num_samples)
+            ] + [None] * (len(conds) - 1)
+        if self.inpaint_mode == "mix":
+            # outside the mask the loop starts from the re-noised original
+            renoised = add_noise(schedule, image_latents, self.initial_latents(
+                shape, noise=mix_noise, generator=generator), int(ts[0]))
+            latents = (1.0 - mask_latents) * renoised + mask_latents * latents
+
         params = {"unet": b.unet,
                   "controlnets": b.controlnet_modules(self.controls)}
         out = denoise(params, latents.to(b.dtype), context, inputs)

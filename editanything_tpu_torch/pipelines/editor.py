@@ -8,11 +8,14 @@ click-to-segment entry point. Images in and out are numpy HWC uint8. The
 SAM resize is torch (``resize_uint8_bilinear``), so this path needs no PIL
 as long as ``resize_image`` has nothing to resize.
 
-Not ported yet; set to anything but its default, each raises
-``NotImplementedError`` naming its ROADMAP item: auto prompt and
-condition-model swap (Queue 1 item 12), scale maps (item 4), alpha mixing
-(item 5), tile refinement (item 10), reference-only arguments (item 9),
-``EA_SAVE_INPUTS`` capture (item 12), DDIM eta (item 3).
+``process`` also takes DDIM's ``eta``, the per-pixel scale map of the SAM
+control (``use_scale_map``, derived from the mask unless ``scale_map`` is
+given) and alpha mixing (``use_alpha_mixing``, ``alpha_weight``, through
+the "mix" pipeline). Not ported yet; set to anything but its default, each
+raises ``NotImplementedError`` naming its ROADMAP item: reference-only
+arguments (Queue 1 item 4), tile refinement (item 5), auto prompt,
+condition-model swap, the ref image's caption and textual inversion, and
+``EA_SAVE_INPUTS`` capture (item 7).
 """
 
 from __future__ import annotations
@@ -35,30 +38,25 @@ from editanything_tpu_torch.utils.image import (HWC3, resize_image,
 # process() arguments of the JAX editor that are not ported yet: their
 # defaults, and the ROADMAP item that ports each
 _NOT_PORTED = {
-    "enable_auto_prompt": (False, "Queue 1 item 12 (captioner)"),
-    "condition_model": (None, "Queue 1 item 12 (ControlNet hot-swap)"),
-    "eta": (0.0, "Queue 1 item 3 (DDIM eta)"),
-    "use_scale_map": (False, "Queue 1 item 4 (ControlNet scale maps)"),
-    "scale_map": (None, "Queue 1 item 4 (ControlNet scale maps)"),
-    "use_alpha_mixing": (False, "Queue 1 item 5 (mix inpainting)"),
-    "alpha_weight": (0.5, "Queue 1 item 5 (mix inpainting)"),
-    "enable_tile": (False, "Queue 1 item 10 (tile refinement)"),
-    "refine_image_resolution": (1024, "Queue 1 item 10 (tile refinement)"),
-    "refine_alignment_ratio": (0.95, "Queue 1 item 10 (tile refinement)"),
-    "ref_image": (None, "Queue 1 item 9 (reference-only control)"),
-    "ref_mask": (None, "Queue 1 item 9 (reference-only control)"),
-    "ref_prompt": (None, "Queue 1 item 9 (reference-only control)"),
-    "ref_auto_prompt": (False, "Queue 1 item 9 (reference-only control)"),
-    "ref_textinv": (False, "Queue 1 item 9 (reference-only control)"),
-    "ref_textinv_path": (None, "Queue 1 item 9 (reference-only control)"),
-    "reference_attn": (True, "Queue 1 item 9 (reference-only control)"),
-    "reference_adain": (False, "Queue 1 item 9 (reference-only control)"),
-    "attention_auto_weight": (1.0, "Queue 1 item 9 (reference-only control)"),
-    "gn_auto_weight": (1.0, "Queue 1 item 9 (reference-only control)"),
-    "style_fidelity": (0.5, "Queue 1 item 9 (reference-only control)"),
-    "ref_scale": (0.0, "Queue 1 item 9 (reference-only control)"),
-    "ref_sam_scale": (None, "Queue 1 item 9 (reference-only control)"),
-    "ref_inpaint_scale": (None, "Queue 1 item 9 (reference-only control)"),
+    "enable_auto_prompt": (False, "Queue 1 item 7 (captioner)"),
+    "condition_model": (None, "Queue 1 item 7 (ControlNet hot-swap)"),
+    "enable_tile": (False, "Queue 1 item 5 (tile refinement)"),
+    "refine_image_resolution": (1024, "Queue 1 item 5 (tile refinement)"),
+    "refine_alignment_ratio": (0.95, "Queue 1 item 5 (tile refinement)"),
+    "ref_image": (None, "Queue 1 item 4 (reference-only control)"),
+    "ref_mask": (None, "Queue 1 item 4 (reference-only control)"),
+    "ref_prompt": (None, "Queue 1 item 4 (reference-only control)"),
+    "ref_auto_prompt": (False, "Queue 1 item 7 (captioner)"),
+    "ref_textinv": (False, "Queue 1 item 7 (textual inversion)"),
+    "ref_textinv_path": (None, "Queue 1 item 7 (textual inversion)"),
+    "reference_attn": (True, "Queue 1 item 4 (reference-only control)"),
+    "reference_adain": (False, "Queue 1 item 4 (reference-only control)"),
+    "attention_auto_weight": (1.0, "Queue 1 item 4 (reference-only control)"),
+    "gn_auto_weight": (1.0, "Queue 1 item 4 (reference-only control)"),
+    "style_fidelity": (0.5, "Queue 1 item 4 (reference-only control)"),
+    "ref_scale": (0.0, "Queue 1 item 4 (reference-only control)"),
+    "ref_sam_scale": (None, "Queue 1 item 4 (reference-only control)"),
+    "ref_inpaint_scale": (None, "Queue 1 item 4 (reference-only control)"),
 }
 
 
@@ -91,6 +89,8 @@ class EditAnythingEditor:
                     and "inpaint" in bundle.controlnets else ("sam",))
         self.pipe = EditPipeline(bundle, controls=controls,
                                  inpaint_mode="blend")
+        self.mix_pipe = EditPipeline(bundle, controls=controls,
+                                     inpaint_mode="mix")
         self.sam = sam
         self.amg_cfg = amg_config or AMGConfig()
         if sam is not None:
@@ -99,6 +99,8 @@ class EditAnythingEditor:
             self._amg_encode, self._amg_generate = build_amg(sam_cfg,
                                                              self.amg_cfg)
         self.click_points: List[Tuple[int, int, int]] = []
+        # non-finite values in the last edit's images, before the uint8 cast
+        self.last_nonfinite = None
 
     # -- SAM auto condition ----------------------------------------------
 
@@ -150,14 +152,21 @@ class EditAnythingEditor:
                 detect_resolution: int = 1024,
                 ddim_steps: int = 30, scale: float = 9.0,
                 control_scale: float = 0.5, seed: int = 0,
-                sampler: str = "unipc", guess_mode: bool = False,
+                eta: float = 0.0, sampler: str = "unipc",
+                guess_mode: bool = False, use_scale_map: bool = False,
+                scale_map: Optional[np.ndarray] = None,
+                alpha_weight: float = 0.5, use_alpha_mixing: bool = False,
                 alignment_ratio: Optional[float] = None,
                 generator: Optional[torch.Generator] = None, noise=None,
+                mix_noise=None, step_noise=None, eta_noise=None,
                 **not_ported):
         """Returns (results_tile, results, [condition_map, mask], prompt),
         the reference's process() contract (editany_lora.py:609-938);
-        results_tile is empty (tile refinement is not ported). `noise` /
-        `generator`: the initial latents, as ``EditPipeline`` takes them."""
+        results_tile is empty (tile refinement is not ported).
+        `use_scale_map` scales the SAM control per pixel by `scale_map`, or
+        when none is given by 1 - the binarised mask (the SAM control off
+        inside the edit region); `use_alpha_mixing` runs the "mix" edit.
+        `generator` and the noises go to ``EditPipeline`` as it takes them."""
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"process() got an unexpected argument {name!r}")
@@ -168,7 +177,7 @@ class EditAnythingEditor:
                                           f"(ROADMAP {item})")
         if os.environ.get("EA_SAVE_INPUTS") == "1":
             raise NotImplementedError("EA_SAVE_INPUTS capture: not ported yet "
-                                      "(ROADMAP Queue 1 item 12)")
+                                      "(ROADMAP Queue 1 item 7)")
         image = HWC3(np.asarray(image, np.uint8))
         if condition_image is None:
             condition_image = self.get_sam_control(
@@ -176,13 +185,26 @@ class EditAnythingEditor:
         positive = f"{prompt}, {a_prompt}" if a_prompt else prompt
         if enable_all_generate or mask is None:
             mask = np.full(image.shape[:2], 255, np.uint8)
-        results = self.pipe(
+        if use_scale_map and scale_map is None:
+            # the SAM control off inside the edit region (editor.py:367-376)
+            m01 = np.asarray(mask, np.float32)
+            if m01.ndim == 3:
+                m01 = m01[..., 0]
+            if m01.max() > 1.5:
+                m01 = m01 / 255.0
+            scale_map = 1.0 - (m01 >= 0.5).astype(np.float32)
+        pipe = self.mix_pipe if use_alpha_mixing else self.pipe
+        results = pipe(
             image=image, mask=mask, prompt=positive,
             condition_image=condition_image, negative_prompt=n_prompt,
             num_samples=num_samples, image_resolution=image_resolution,
             num_steps=ddim_steps, guidance_scale=scale,
-            control_scale=control_scale, sampler=sampler,
-            alignment_ratio=alignment_ratio, guess_mode=guess_mode, seed=seed,
-            generator=generator, noise=noise)
+            control_scale=control_scale, sampler=sampler, eta=eta,
+            scale_map=scale_map if use_scale_map else None,
+            alignment_ratio=alignment_ratio, alpha_weight=alpha_weight,
+            guess_mode=guess_mode, seed=seed, generator=generator,
+            noise=noise, mix_noise=mix_noise, step_noise=step_noise,
+            eta_noise=eta_noise)
+        self.last_nonfinite = pipe.last_nonfinite
         return ([], [results[i] for i in range(len(results))],
                 [condition_image, mask], positive)

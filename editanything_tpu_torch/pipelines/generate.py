@@ -1,15 +1,15 @@
 """txt2img with one ControlNet (the reference's sam2image path), and the
 helpers every pipeline over a bundle shares: uint8 output, condition maps,
-prompt context, VAE encode, initial latents.
+scale maps, prompt context, VAE encode, initial latents and per-step noise.
 
 Counterpart of ``editanything_tpu/pipelines/generate.py``
 (``GenerationPipeline.__call__``, :168-229, with ``to_uint8``,
-``prepare_condition``, ``embed_prompts`` and ``_encode``) for UniPC, as the
-port's denoiser runs it. Two additions, as in ``EditPipeline``: the initial
-latents can be handed in (``noise``) or drawn from an explicit
-``generator``. No safety checker is loaded (the JAX bundle's default), so
-the images pass through. Not ported yet: per-pixel scale maps, encoder
-caching and the tiled VAE (ROADMAP Queue 1 items 4, 9 and 10).
+``prepare_condition``, ``embed_prompts`` and ``_encode``) for UniPC and
+DDIM, per-pixel scale maps and guess mode. Two additions, as in
+``EditPipeline``: the initial latents can be handed in (``noise``) or drawn
+from an explicit ``generator``. No safety checker is loaded (the JAX
+bundle's default), so the images pass through. Not ported yet: encoder
+caching (ROADMAP Queue 1 item 4) and the tiled VAE (item 5).
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ class GenerationPipeline:
         if max(x.shape[-2:]) > self.vae_oneshot_max_px:
             raise NotImplementedError("tiled VAE encode above "
                                       f"{self.vae_oneshot_max_px} px is not "
-                                      "ported yet (ROADMAP Queue 1 item 10)")
+                                      "ported yet (ROADMAP Queue 1 item 5)")
         return self.bundle.vae.encode_to_latents(x)
 
     def prepare_condition(self, condition_map: np.ndarray, h: int, w: int,
@@ -63,6 +63,14 @@ class GenerationPipeline:
         cond = resize_bilinear(cond.permute(2, 0, 1)[None], (h, w))
         b = self.bundle
         return cond.expand(batch, -1, -1, -1).to(b.device, b.dtype)
+
+    def prepare_scale_map(self, scale_map: np.ndarray, h: int, w: int,
+                          batch: int) -> torch.Tensor:
+        """(Hm, Wm) per-pixel ControlNet scale -> (B, H, W) fp32 on the
+        bundle's device, resized bilinearly as ``jax.image.resize``."""
+        m = torch.from_numpy(np.asarray(scale_map, np.float32))[None, None]
+        m = resize_bilinear(m, (h, w))[0]
+        return m.expand(batch, -1, -1).to(self.bundle.device)
 
     def embed_prompts(self, prompt: str, negative_prompt: str, batch: int):
         b = self.bundle
@@ -93,6 +101,25 @@ class GenerationPipeline:
                              f"{(b, h, w, c)}")
         return latents
 
+    def per_step_noise(self, shape, num_steps: int, *, noise=None,
+                       seed: int = 0) -> torch.Tensor:
+        """(num_steps, B, 4, h, w) fp32 noise, one slice per denoise step, on
+        the bundle's device: `noise` when given (that layout), else drawn
+        from a generator on that device seeded with `seed`."""
+        device = self.bundle.device
+        want = (num_steps,) + tuple(shape)
+        if noise is None:
+            g = torch.Generator(device).manual_seed(seed)
+            return torch.randn(want, generator=g, device=device,
+                               dtype=torch.float32)
+        out = (noise if isinstance(noise, torch.Tensor) else
+               torch.from_numpy(np.asarray(noise, np.float32)))
+        out = out.float().to(device)
+        if tuple(out.shape) != want:
+            raise ValueError(f"step noise is {tuple(out.shape)}; this call "
+                             f"needs {want}")
+        return out
+
     def decode(self, latents) -> np.ndarray:
         """Final latents -> (B, H, W, 3) uint8 images, counting non-finite
         values before the cast."""
@@ -115,13 +142,12 @@ class GenerationPipeline:
         map resized to `image_resolution` (sam2image.py:146-156), or with
         return_latents the final (num_samples, H/8, W/8, 4) fp32 latents. The
         initial latents are `noise` when given ((num_samples, H/8, W/8, 4)),
-        else drawn from `generator` (default: seeded with `seed`)."""
-        if scale_map is not None:
-            raise NotImplementedError("not ported yet: per-pixel ControlNet "
-                                      "scale maps (ROADMAP Queue 1 item 4)")
+        else drawn from `generator` (default: seeded with `seed`).
+        `scale_map` (Hm, Wm) scales the ControlNet per pixel; DDIM runs with
+        eta 0, as the JAX pipeline's."""
         if encoder_interval != 1:
             raise NotImplementedError("not ported yet: encoder_interval > 1 "
-                                      "(ROADMAP Queue 1 item 9)")
+                                      "(ROADMAP Queue 1 item 4)")
         b = self.bundle
         sized = resize_image(HWC3(condition_image.astype(np.uint8)),
                              image_resolution)
@@ -139,6 +165,9 @@ class GenerationPipeline:
             "controlnet_scales": [float(control_scale)],
             "guidance_scale": float(guidance_scale),
         }
+        if scale_map is not None:
+            inputs["controlnet_scale_maps"] = [
+                self.prepare_scale_map(scale_map, h, w, num_samples)]
         latents = self.initial_latents((num_samples, 4, h // 8, w // 8),
                                        noise=noise, generator=generator,
                                        seed=seed)

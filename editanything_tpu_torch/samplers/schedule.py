@@ -82,10 +82,28 @@ def add_noise(schedule: NoiseSchedule, x0, noise, t: int):
 def to_x0(schedule: NoiseSchedule, sample, model_output, t: int):
     """The network output as an x0 prediction (fp32)."""
     a, s = alpha_sigma(schedule, t)
+    a, s = float(a), float(s)
     x = sample.float()
     m = model_output.float()
-    if schedule.prediction_type != "epsilon":
-        raise NotImplementedError(
-            f"prediction type {schedule.prediction_type!r} is not ported yet "
-            "(ROADMAP Queue 1 item 4: SD2.1 v-prediction)")
-    return (x - float(s) * m) / float(a)
+    if schedule.prediction_type == "epsilon":
+        return (x - s * m) / a
+    if schedule.prediction_type == "v_prediction":
+        return a * x - s * m
+    if schedule.prediction_type == "sample":
+        return m
+    raise ValueError(schedule.prediction_type)
+
+
+def to_epsilon(schedule: NoiseSchedule, sample, model_output, t: int):
+    """The network output as an epsilon prediction (fp32)."""
+    a, s = alpha_sigma(schedule, t)
+    a, s = float(a), float(s)
+    x = sample.float()
+    m = model_output.float()
+    if schedule.prediction_type == "epsilon":
+        return m
+    if schedule.prediction_type == "v_prediction":
+        return a * m + s * x
+    if schedule.prediction_type == "sample":
+        return (x - a * m) / s
+    raise ValueError(schedule.prediction_type)

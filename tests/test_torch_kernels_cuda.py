@@ -39,7 +39,8 @@ from editanything_tpu_torch.pipelines.bundle import random_sam
 # depth that rules out 16-byte loads (36), an output depth wider than 160
 # that takes the wide kernel with a partly used warp (176), key loops longer
 # than the ring with a ragged last tile (320 and 1030 keys) and a query count
-# that leaves most warps of the 256-row block past N (100)
+# that leaves most warps of the 256-row block past N (100), and SD2.1's
+# 64-wide heads
 ATTN_CASES = [
     (128, 128, 40, 40, None),
     (256, 77, 80, 80, None),
@@ -53,6 +54,7 @@ ATTN_CASES = [
     (256, 320, 40, 40, None),
     (200, 1030, 80, 80, None),
     (100, 150, 208, 80, 1.0),
+    (130, 1030, 64, 64, None),    # SD2.1's 64-wide heads, ragged key tail
 ]
 # (batch, n, m): the VAE's single 512-deep head through the wide kernel, at
 # batch 1 (encoder) and 2 (decoder), ragged and whole tiles

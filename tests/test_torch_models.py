@@ -138,6 +138,9 @@ def test_config_mirrors_jax(name):
     assert dataclasses.asdict(jcls()) == dataclasses.asdict(tcls())
     assert dataclasses.asdict(JC.sd15_unet()) == dataclasses.asdict(TC.sd15_unet())
     assert dataclasses.asdict(JC.clip_vit_l()) == dataclasses.asdict(TC.clip_vit_l())
+    for fn in ("sd15_inpaint_unet", "sd21_unet", "openclip_vit_h"):
+        assert (dataclasses.asdict(getattr(JC, fn)())
+                == dataclasses.asdict(getattr(TC, fn)())), fn
     assert JC.UNetConfig().time_embed_dim == TC.UNetConfig().time_embed_dim
     assert JC.CLIPTextConfig().head_dim == TC.CLIPTextConfig().head_dim
 
@@ -271,6 +274,60 @@ def test_tokenizer_matches_jax(text):
         assert got.encode(text) == want.encode(text)
         assert (got.bos_id, got.eos_id, got.context_length) == (
             want.bos_id, want.eos_id, want.context_length)
+
+
+# --- SD2.1 traits and the inpainting UNet -----------------------------------
+
+SD21_TINY = dict(block_out_channels=(32, 64), layers_per_block=1,
+                 cross_attention_dim=48, attention_head_dim=(2, 4),
+                 use_linear_projection=True,
+                 down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                 up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"),
+                 norm_num_groups=8)
+
+
+@pytest.mark.parametrize("variant", ["sd21_linear", "inpaint_9ch"])
+def test_unet_variants_load_strictly_and_match_jax(jbundle, variant):
+    """SD2.1's linear proj_in/proj_out (2-D kernels where SD1.5 has 1x1
+    convs) and the inpainting UNet's 9-channel conv_in load from JAX trees
+    with strict=True and compute what the JAX UNet computes (the SD2.1
+    ControlNets: tests/test_torch_edit_modes.py)."""
+    rng = np.random.default_rng(31)
+    if variant == "sd21_linear":
+        jcfg = JC.UNetConfig(**SD21_TINY)
+        c_in, ctx_dim = 4, 48
+    else:
+        jcfg = dataclasses.replace(jbundle.unet_cfg, in_channels=9)
+        c_in, ctx_dim = 9, 32
+    tree = perturb(JU.init_unet(jax.random.PRNGKey(30), jcfg, jnp.float32), 32)
+    sample = rng.standard_normal((2, 8, 8, c_in), np.float32)
+    t = np.array([999, 250], np.int32)
+    ctx = rng.standard_normal((2, 8, ctx_dim), np.float32)
+    want = JU.apply(tree, jcfg, jnp.asarray(sample), jnp.asarray(t),
+                    jnp.asarray(ctx))
+    unet = module_from_tree(UNet2DConditionModel, port_cfg(jcfg), tree)
+    if variant == "sd21_linear":
+        proj = unet.down_blocks[0].attentions[0].proj_in
+        assert isinstance(proj, torch.nn.Linear)
+    else:
+        assert unet.conv_in.weight.shape[1] == 9
+    close(unet(nchw(sample), torch.from_numpy(t), torch.from_numpy(ctx)),
+          want, DEEP_TOL)
+
+
+def test_gelu_text_tower_matches_jax():
+    """The OpenCLIP-H tower's traits at test width: gelu, 16 heads (of
+    width 4 here), several layers, the final LayerNorm on the last."""
+    jcfg = JC.CLIPTextConfig(vocab_size=500, hidden_size=64,
+                             intermediate_size=256, num_layers=3,
+                             num_heads=16, max_position_embeddings=8,
+                             hidden_act="gelu")
+    tree = perturb(JCT.init_clip_text(jax.random.PRNGKey(36), jcfg,
+                                      jnp.float32), 37)
+    ids = np.random.default_rng(38).integers(0, 500, (2, 8)).astype(np.int32)
+    want = JCT.apply(tree, jcfg, jnp.asarray(ids))
+    text = module_from_tree(CLIPTextModel, port_cfg(jcfg), tree)
+    close(text(torch.from_numpy(ids).long()), want, BLOCK_TOL)
 
 
 # --- weights round trip -----------------------------------------------------

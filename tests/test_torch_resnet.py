@@ -179,8 +179,8 @@ def test_txt2img_matches_jax(monkeypatch, bundles, jax_generation, fused):
 def test_txt2img_refuses_unported_options(bundles):
     pipe = GenerationPipeline(bundles[1], controlnet="sam")
     with pytest.raises(NotImplementedError, match="item 4"):
-        pipe(**GEN_ARGS, scale_map=np.ones((64, 64), np.float32))
-    with pytest.raises(NotImplementedError, match="item 9"):
+        pipe(**GEN_ARGS, sampler="plms")
+    with pytest.raises(NotImplementedError, match="item 4"):
         pipe(**GEN_ARGS, encoder_interval=2)
 
 

@@ -84,3 +84,96 @@ def test_unipc_steps_match_jax(steps):
                                        atol=TOL * scale, rtol=0)
         assert tstate.t_hist == tuple(int(v) for v in np.asarray(jstate.t_hist))
         assert tstate.step_index == int(jstate.step_index)
+
+
+# --- v-prediction and DDIM ----------------------------------------------------
+
+@pytest.mark.parametrize("prediction_type", ["epsilon", "v_prediction",
+                                             "sample"])
+@pytest.mark.parametrize("t", [999, 500, 0])
+def test_to_x0_and_to_epsilon_match_jax(prediction_type, t):
+    js = JS.make_schedule(prediction_type=prediction_type)
+    ts = TS.make_schedule(prediction_type=prediction_type)
+    rng = np.random.default_rng(t + 7)
+    x, out = (rng.standard_normal((2, 4, 8, 8), np.float32) for _ in range(2))
+    jt = jnp.asarray(t)
+    for tfn, jfn in ((TS.to_x0, JS.to_x0), (TS.to_epsilon, JS.to_epsilon)):
+        want = np.asarray(jfn(js, jnp.asarray(x), jnp.asarray(out), jt))
+        got = tfn(ts, torch.from_numpy(x), torch.from_numpy(out), t)
+        # eps -> x0 and x0 -> eps divide by sqrt(abar) / sqrt(1 - abar)
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL * 20,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("prediction_type", ["epsilon", "v_prediction"])
+@pytest.mark.parametrize("eta", [0.0, 0.7])
+def test_ddim_steps_match_jax(prediction_type, eta):
+    """A whole DDIM trajectory, the last step to t_prev = -1 (the clean
+    state), with the same model outputs and eta noises on both sides."""
+    from editanything_tpu.samplers import ddim as JD
+    from editanything_tpu_torch.samplers import ddim as TD
+    js = JS.make_schedule(prediction_type=prediction_type)
+    ts = TS.make_schedule(prediction_type=prediction_type)
+    grid = [int(v) for v in JS.make_timesteps(5, spacing="leading",
+                                              steps_offset=1)]
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 4, 8, 8), np.float32)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    for i, t in enumerate(grid):
+        t_prev = grid[i + 1] if i + 1 < len(grid) else -1
+        out, noise = (rng.standard_normal(x.shape, np.float32)
+                      for _ in range(2))
+        jx, jx0 = JD.ddim_step(js, jx, jnp.asarray(out), jnp.asarray(t),
+                               jnp.asarray(t_prev), eta=eta,
+                               noise=jnp.asarray(noise))
+        tx, tx0 = TD.ddim_step(ts, tx, torch.from_numpy(out), t, t_prev,
+                               eta=eta, noise=torch.from_numpy(noise))
+        scale = max(1.0, float(np.abs(np.asarray(jx0)).max()))
+        np.testing.assert_allclose(tx0.numpy(), np.asarray(jx0),
+                                   atol=TOL * 20 * scale, rtol=1e-5)
+        np.testing.assert_allclose(tx.numpy(), np.asarray(jx),
+                                   atol=TOL * 20 * scale, rtol=1e-5,
+                                   err_msg=f"step {i}, t {t} -> {t_prev}")
+    assert t_prev == -1
+    with pytest.raises(ValueError, match="noise"):
+        TD.ddim_step(ts, tx, tx, 500, 400, eta=0.5)
+
+
+def test_ddim_encode_and_stochastic_encode_match_jax():
+    from editanything_tpu.samplers import ddim as JD
+    from editanything_tpu_torch.samplers import ddim as TD
+    js = JS.make_schedule(prediction_type="v_prediction")
+    ts = TS.make_schedule(prediction_type="v_prediction")
+    rng = np.random.default_rng(12)
+    x, out, noise = (rng.standard_normal((2, 4, 8, 8), np.float32)
+                     for _ in range(3))
+    np.testing.assert_allclose(
+        TD.ddim_encode_step(ts, torch.from_numpy(x), torch.from_numpy(out),
+                            250, 500).numpy(),
+        np.asarray(JD.ddim_encode_step(js, jnp.asarray(x), jnp.asarray(out),
+                                       jnp.asarray(250), jnp.asarray(500))),
+        atol=TOL, rtol=0)
+    np.testing.assert_allclose(
+        TD.stochastic_encode(ts, torch.from_numpy(x), 600,
+                             torch.from_numpy(noise)).numpy(),
+        np.asarray(JD.stochastic_encode(js, jnp.asarray(x), jnp.asarray(600),
+                                        jnp.asarray(noise))),
+        atol=TOL, rtol=0)
+
+
+def test_unipc_vpred_steps_match_jax():
+    js = JS.make_schedule(prediction_type="v_prediction")
+    ts = TS.make_schedule(prediction_type="v_prediction")
+    grid = JS.make_timesteps(5)
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((2, 4, 8, 8), np.float32)
+    jstate, tstate = JP.unipc_init(jnp.asarray(x)), TP.unipc_init(torch.from_numpy(x))
+    for i in range(5):
+        out = rng.standard_normal(x.shape, np.float32)
+        jstate, jprev = JP.unipc_step(js, jstate, jnp.asarray(out),
+                                      jnp.asarray(grid), step=i)
+        tstate, tprev = TP.unipc_step(ts, tstate, torch.from_numpy(out), grid,
+                                      step=i)
+        scale = max(1.0, float(np.abs(np.asarray(jprev)).max()))
+        np.testing.assert_allclose(tprev.numpy(), np.asarray(jprev),
+                                   atol=TOL * scale, rtol=0, err_msg=f"step {i}")
