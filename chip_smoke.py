@@ -14,7 +14,10 @@ non-zero, and nothing is caught:
      stated bound, the errors of planted faults that the bound must reject,
      and both times (CUDA events, after warm-up): flash attention at the
      UNet's, the VAE's and SAM's shapes (global and windowed encoder
-     layers) and SD2.1's (64-wide heads), each also beside its bound
+     layers), SD2.1's (64-wide heads) and the reference read attention's
+     (N queries over N + n keys, n the reference tokens inside
+     ``ragged_ref_mask`` at each UNet level, no multiple of the key tile),
+     each also beside its bound
      (least time for the same work) and PyTorch's
      scaled_dot_product_attention at the same shape and scale, with the
      SDPA backend that ran named at the UNet's 64x64 self and the VAE's
@@ -38,7 +41,11 @@ non-zero, and nothing is caught:
      with the switch on; three tiny edits of the rest of the edit surface in
      fp32, GPU against CPU, with the same initial and per-step noises: SD2.1
      with DDIM at eta 0.5 and "mix", SD1.5 with a scale map and guess mode,
-     and the 9-channel "unet9" edit; then a small SAM with the published
+     and the 9-channel "unet9" edit; a tiny reference-mode edit (the
+     attention and AdaIN hooks and the FFT mix) in fp32 and bf16 as the
+     tiny edit, and PLMS, DPM-Solver++ order 3, singlestep order 2 and UniPC
+     with encoder_interval 2 in fp32, images within 1 level; then a small
+     SAM with the published
      decoder widths (so the decoder kernels launch): a 4x4-point AMG with
      the quality filters open and one click;
   4. full width, edit only: SD1.5 UNet + two ControlNets (zero convs drawn
@@ -53,17 +60,26 @@ non-zero, and nothing is caught:
      tower, v-prediction) with one denoise step (batch 4, t = 500) through
      kernel B and through its plain twin, each against the fp32 step, then a
      warm-up and requests through ``EditAnythingEditor.process`` with a
-     supplied condition map (512^2, 2 samples, 30 steps, CFG 9), two of each
-     in turns: DDIM at eta 0.5 with the scale map and alpha mixing 0.5, and
+     supplied condition map (512^2, 2 samples, 30 steps, CFG 9), one of
+     each: DDIM at eta 0.5 with the scale map and alpha mixing 0.5, and
      UniPC in guess mode with blend; the 9-channel SD1.5 inpainting UNet
-     with a warm-up and two "unet9" requests through ``EditPipeline``; each
+     with a warm-up and one "unet9" request through ``EditPipeline``; each
      request with its
      seconds, peak memory, kernel B's and A's launches (from 0 just before
      it), non-finite values (0) and output shape;
+  4c. the SD1.5 bundle of phase 4 through ``EditAnythingEditor.process``
+     (supplied map, 512^2, 2 samples, 30 steps, CFG 9): reference-mode
+     requests (attention + AdaIN, style fidelity 0.5, ref_scale 0.4, the
+     ragged reference mask) in turns with edit-only ones, after a warm-up;
+     PLMS, DPM-Solver++ and singlestep order 2 once each after a warm-up;
+     UniPC at encoder_interval 1, 2, 3 and 5 in turns, with each k's
+     images' PSNR against k = 1's; each request as in phase 4b, its kernel
+     B launches equal to ``expected_flash_launches`` (the read attention on
+     kernel B);
   5. the main path: SAM ViT-H (random bf16 weights) and the same bundle in
      ``EditAnythingEditor``; one warm-up and three timed
      ``process(condition_image=None)`` requests (SAM at 1024^2, the AMG,
-     the ID map, the 512^2 edit), each with its SAM-phase seconds, then two
+     the ID map, the 512^2 edit), each with its SAM-phase seconds, then one
      with every resnet fused; the SAM phase split once into encoder,
      decode batches, selection/NMS and ID map; one AMG with the filters
      open (every candidate valid, NMS at its worst) and one click; outputs
@@ -228,6 +244,42 @@ TINY_MODE_CASES = {
         .reshape(64, 64), guess_mode=True, alignment_ratio=0.75)),
     "sd15 unet9": ("sd15_inpaint", "unet9", {}),
 }
+
+
+def ragged_ref_mask(size: int) -> np.ndarray:
+    """uint8 (size, size) reference region: an ellipse with a notch cut out.
+    At 512^2 it leaves 1189 / 301 / 77 / 21 reference tokens at the UNet's
+    64 / 32 / 16 / 8 levels, none a multiple of kernel B's key tile."""
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    m = ((yy - 0.45) ** 2 / 0.3 ** 2 + (xx - 0.52) ** 2 / 0.36 ** 2) <= 1.0
+    m &= ~((yy > 0.5) & (xx > 0.6))
+    return (m * 255).astype(np.uint8)
+
+
+def _tiny_reference() -> dict:
+    """The reference arguments of the golden ``refctrl`` case (attention,
+    AdaIN and the FFT mix; tests/test_golden_regression.py) at 64^2."""
+    return dict(ref_image=_checker_image(64, 64)[:, ::-1],
+                ref_mask=ragged_ref_mask(64), ref_prompt="a blue cat",
+                reference_attn=True, reference_adain=True,
+                style_fidelity=0.5, ref_scale=0.4)
+
+
+# the denoise surface of reference-only control, PLMS, DPM-Solver and
+# encoder caching at tiny widths, fp32 GPU against CPU (SD1.5, blend, 5
+# steps: PLMS reaches its 4th order, DPM++ its 3rd, singlestep order 2
+# runs blocks [2, 2, 1]); images within 1 level
+# (the reference edit runs in tiny_parity, which also holds its bf16 run)
+TINY_DENOISE_CASES = {
+    "sd15 plms": ("sd15", "blend", dict(sampler="plms", alignment_ratio=0.75)),
+    "sd15 dpm3": ("sd15", "blend", dict(sampler="dpm3", alignment_ratio=0.75)),
+    "sd15 dpms2": ("sd15", "blend", dict(sampler="dpms2",
+                                         alignment_ratio=0.75)),
+    "sd15 unipc encoder_interval 2": ("sd15", "blend", dict(
+        encoder_interval=2, alignment_ratio=0.75)),
+}
+TINY_DENOISE_STEPS = 5
+TINY_DENOISE_IMAGE_LEVELS = 1
 # the fused resnet block: (label, N, Cin, Cout, time embedding, H = W, eps)
 # at 512^2 with 2 samples under CFG (UNet batch 4) and the VAE at batch 2
 RESNET_SHAPES = [
@@ -262,8 +314,10 @@ RESNET_GN2_STATS_BOUND = 1e-5
 STEP_RATIO = 2
 FULL_WIDTH_REQUESTS = 2     # edit-only requests per switch setting (phase 4)
 MAIN_PATH_REQUESTS = 3      # SAM + edit requests (phase 5)
-FUSED_MAIN_PATH_REQUESTS = 2   # the same with every resnet fused (phase 5)
-MODE_REQUESTS = 2           # timed requests of each case of phase 4b
+FUSED_MAIN_PATH_REQUESTS = 1   # the same with every resnet fused (phase 5)
+MODE_REQUESTS = 1           # timed requests of each case of phase 4b
+REF_REQUESTS = 2            # of each case of phase 4c run in turns
+ENCODER_INTERVALS = (1, 2, 3, 5)    # UniPC's encoder caching in phase 4c
 
 
 def max_err(got, want) -> float:
@@ -287,6 +341,27 @@ def key_tile(dqk: int, dv: int) -> int:
     def pad(d):
         return -(-d // 16) * 16
     return 32 if pad(dv) > 160 or (pad(dv) <= 128 and pad(dqk) > 128) else 64
+
+
+def reference_read_shapes():
+    """ATTN_SHAPES-style entries of the reference read attention at 512^2
+    with 2 samples under CFG: each hooked block's queries attend over its
+    own tokens and the n reference tokens inside ``ragged_ref_mask(512)`` at
+    that level (64x64, 32x32, 16x16 and the 8x8 mid block), n counted by the
+    port's own ``RefMasks`` from the mask as the edit pipeline makes it."""
+    from editanything_tpu_torch.engine.refctrl import RefMasks
+    from editanything_tpu_torch.utils.image import resize_nearest
+    m = torch.from_numpy(ragged_ref_mask(512).astype(np.float32) / 255.0)
+    lat = (resize_nearest(m[None, None], (64, 64)) >= 0.5).float()
+    masks = RefMasks(lat, lat)
+    shapes = []
+    for side, d in ((64, 40), (32, 80), (16, 160), (8, 160)):
+        n = int(masks.valid_tokens(side, side).numel())
+        check(0 < n and n % key_tile(d, d),
+              f"reference mask leaves {n} tokens at {side}x{side}")
+        shapes.append((f"ref read {side}x{side} (+{n} reference keys)", 4, 8,
+                       side * side, side * side + n, d, d, None))
+    return shapes
 
 
 def attention_faults(q, k, v, want, scale) -> dict:
@@ -467,7 +542,8 @@ def phase_kernels():
     headline = {}
     for dtype in (torch.bfloat16, torch.float32):
         tag = "bf16" if dtype == torch.bfloat16 else "fp32"
-        for label, b, h, n, m, dqk, dv, scale in ATTN_SHAPES:
+        for label, b, h, n, m, dqk, dv, scale in (ATTN_SHAPES
+                                                  + reference_read_shapes()):
             q = torch.randn(b, h, n, dqk, generator=g, device="cuda").to(dtype)
             k = torch.randn(b, h, m, dqk, generator=g, device="cuda").to(dtype)
             v = torch.randn(b, h, m, dv, generator=g, device="cuda").to(dtype)
@@ -1039,14 +1115,19 @@ def _square_mask(size, lo, hi):
 
 
 def phase_tiny_parity():
-    """The tiny edit with the composed and the fused resnets, and a tiny
-    txt2img with the fused resnets: CUDA against the CPU in fp32, and in
-    bf16 against the fp32 CPU run, at most TINY_BF16_RATIO times as far as
-    the bf16 CPU run."""
-    for kind, fused in (("edit", False), ("edit", True), ("txt2img", True)):
+    """The tiny edit with the composed and the fused resnets, a tiny
+    txt2img with the fused resnets and a tiny reference-mode edit: CUDA
+    against the CPU in fp32, and in bf16 against the fp32 CPU run, at most
+    TINY_BF16_RATIO times as far as the bf16 CPU run; then the rest of the
+    edit and denoise surface in fp32."""
+    for kind, fused in (("edit", False), ("edit", True), ("txt2img", True),
+                        ("reference edit", False)):
         tiny_parity(kind, fused)
-    for case in TINY_MODE_CASES:
-        tiny_mode_parity(case)
+    for case, spec in TINY_MODE_CASES.items():
+        tiny_mode_parity(case, *spec, 4, TINY_IMAGE_LEVELS)
+    for case, spec in TINY_DENOISE_CASES.items():
+        tiny_mode_parity(case, *spec, TINY_DENOISE_STEPS,
+                         TINY_DENOISE_IMAGE_LEVELS)
 
 
 def tiny_parity(kind: str, fused: bool):
@@ -1063,17 +1144,21 @@ def tiny_parity(kind: str, fused: bool):
                 num_steps=4, guidance_scale=9.0,
                 noise=np.random.default_rng(7).standard_normal(
                     (2, 8, 8, 4)).astype(np.float32))
-    if kind == "edit":
+    if kind != "txt2img":
         args.update(image=_checker_image(64, 64), mask=_square_mask(64, 16, 48),
                     control_scale=0.5, alignment_ratio=0.75)
+    if kind == "reference edit":
+        args.update(_tiny_reference())
+    levels = (TINY_DENOISE_IMAGE_LEVELS if kind == "reference edit"
+              else TINY_IMAGE_LEVELS)
     with_fused_resnets(fused)
     before = K.resnet_fused.launches
     outs = {}
     for device, dtype in (("cpu", torch.float32), ("cuda", torch.float32),
                           ("cpu", torch.bfloat16), ("cuda", torch.bfloat16)):
         b = bundle().to(device, dtype)
-        pipe = EditPipeline(b) if kind == "edit" else \
-            GenerationPipeline(b, controlnet="sam")
+        pipe = GenerationPipeline(b, controlnet="sam") if kind == "txt2img" \
+            else EditPipeline(b)
         outs[device, dtype] = (pipe(**args, return_latents=True), pipe(**args))
     with_fused_resnets(False)
     check((K.resnet_fused.launches > before) == fused,
@@ -1090,9 +1175,9 @@ def tiny_parity(kind: str, fused: bool):
     print(f"[parity] {what}, fp32, CUDA (kernels) vs CPU (plain twins): "
           f"latents max_abs_err {lat_err:.3e} <= {TINY_LATENT_TOL:g} "
           f"(|latents| <= {float(np.abs(outs[ref][0]).max()):.2f}); "
-          f"images max diff {img_err} <= {TINY_IMAGE_LEVELS} levels")
+          f"images max diff {img_err} <= {levels} levels")
     check(lat_err <= TINY_LATENT_TOL, f"{what}: latents differ by {lat_err}")
-    check(img_err <= TINY_IMAGE_LEVELS, f"{what}: images differ by {img_err}")
+    check(img_err <= levels, f"{what}: images differ by {img_err}")
     lat_k, img_k = dist(("cuda", torch.bfloat16), ref)
     lat_p, img_p = dist(("cpu", torch.bfloat16), ref)
     print(f"[parity] {what}, bf16 against the fp32 CPU run: CUDA (kernels) "
@@ -1105,23 +1190,24 @@ def tiny_parity(kind: str, fused: bool):
           f"{what} bf16 images: {img_k} > {TINY_BF16_RATIO} x {img_p} levels")
 
 
-def tiny_mode_parity(case: str):
-    """One edit of the rest of the edit surface on a tiny bundle of its
-    family, fp32 on the GPU (kernels) against fp32 on the CPU (plain twins),
-    with the same weights and the same initial, "mix" and eta noises."""
+def tiny_mode_parity(case: str, family: str, mode: str, kw: dict, steps: int,
+                     levels: int):
+    """One edit of the rest of the edit and denoise surface on a tiny
+    bundle of its family, fp32 on the GPU (kernels) against fp32 on the CPU
+    (plain twins), with the same weights and the same initial, "mix" and eta
+    noises; images within `levels`."""
     from editanything_tpu_torch.core import flash_attention as FA
     from editanything_tpu_torch.pipelines.bundle import random_bundle
     from editanything_tpu_torch.pipelines.edit import EditPipeline
-    family, mode, kw = TINY_MODE_CASES[case]
     rng = np.random.default_rng(8)
     args = dict(image=_checker_image(64, 64), mask=_square_mask(64, 16, 48),
                 prompt="a red cat", condition_image=_checker_image(64, 64),
                 negative_prompt="blurry", num_samples=2, image_resolution=64,
-                num_steps=4, guidance_scale=9.0, control_scale=0.5,
+                num_steps=steps, guidance_scale=9.0, control_scale=0.5,
                 noise=rng.standard_normal((2, 8, 8, 4)).astype(np.float32),
                 mix_noise=rng.standard_normal((2, 8, 8, 4)).astype(np.float32),
-                step_noise=rng.standard_normal((4, 2, 4, 8, 8)).astype(np.float32),
-                eta_noise=rng.standard_normal((4, 2, 4, 8, 8)).astype(np.float32),
+                step_noise=rng.standard_normal((steps, 2, 4, 8, 8)).astype(np.float32),
+                eta_noise=rng.standard_normal((steps, 2, 4, 8, 8)).astype(np.float32),
                 **kw)
     outs = {}
     for device in ("cpu", "cuda"):
@@ -1138,10 +1224,10 @@ def tiny_mode_parity(case: str):
     print(f"[parity] tiny {case}, fp32, CUDA (kernels) vs CPU (plain twins): "
           f"latents max_abs_err {lat_err:.3e} <= {TINY_LATENT_TOL:g} "
           f"(|latents| <= {float(np.abs(outs['cpu'][0]).max()):.2f}); images "
-          f"max diff {img_err} <= {TINY_IMAGE_LEVELS} levels; {launched} "
+          f"max diff {img_err} <= {levels} levels; {launched} "
           f"flash_attention launches")
     check(lat_err <= TINY_LATENT_TOL, f"tiny {case}: latents differ by {lat_err}")
-    check(img_err <= TINY_IMAGE_LEVELS, f"tiny {case}: images differ by {img_err}")
+    check(img_err <= levels, f"tiny {case}: images differ by {img_err}")
 
 
 def phase_sam_parity():
@@ -1210,6 +1296,17 @@ def phase_sam_parity():
     for name, a, b in zip(("logits", "IoUs", "click logits"), k, c):
         check(a <= TINY_BF16_RATIO * b,
               f"small SAM bf16 {name}: {a} > {TINY_BF16_RATIO} x {b}")
+
+
+def reference_args() -> dict:
+    """The reference-only arguments of phase 4c's reference requests
+    (``EditPipeline`` and ``process`` take the same names): the attention
+    and AdaIN hooks, style fidelity 0.5, the FFT mix at 0.4, the ragged
+    reference mask over another ID map."""
+    return dict(ref_image=_id_map(512, 512, 5)[:, ::-1],
+                ref_mask=ragged_ref_mask(512), ref_prompt="a blue cat",
+                reference_attn=True, reference_adain=True,
+                style_fidelity=0.5, ref_scale=0.4)
 
 
 def full_width_request() -> dict:
@@ -1524,6 +1621,110 @@ def phase_full_width_modes() -> dict:
     return launches
 
 
+def transformer_blocks(cfg) -> tuple:
+    """(UNet encoder + mid, UNet decoder, one ControlNet) transformer blocks
+    of a UNetConfig: each launches kernel B twice a pass (self, cross)."""
+    down = sum(cfg.layers_per_block for t in cfg.down_block_types
+               if t == "CrossAttnDownBlock2D")
+    up = sum(cfg.layers_per_block + 1 for t in cfg.up_block_types
+             if t == "CrossAttnUpBlock2D")
+    return down + 1, up, down + 1
+
+
+def expected_flash_launches(cfg, steps: int, *, sampler: str = "unipc",
+                            encoder_interval: int = 1,
+                            reference: bool = False) -> int:
+    """Kernel B's launches in one 2-ControlNet edit request: per model
+    evaluation 2 per transformer block of the UNet and both ControlNets (the
+    UNet's encoder half and the ControlNets on key steps only under encoder
+    caching), PLMS one evaluation more; under reference control each step
+    adds the write pass (the same blocks again) and one launch per hooked
+    block of the UNet and the last ControlNet (the style-fidelity recompute
+    beside the read attention); the VAE's mid attention once per encode and
+    decode (the image, the reference, the result)."""
+    enc, dec, cn = transformer_blocks(cfg)
+    evals = steps + (sampler == "plms")
+    keys = evals if encoder_interval == 1 else -(-steps // encoder_interval)
+    per_pass = 2 * (enc + dec + 2 * cn)
+    n = evals * 2 * dec + keys * 2 * (enc + 2 * cn)
+    if reference:
+        n += steps * (per_pass + enc + dec + cn)
+    return n + (3 if reference else 2)
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
+def phase_reference_and_samplers(bundle) -> dict:
+    """Phase 4c: the SD1.5 bundle at published widths (bf16) through
+    ``EditAnythingEditor.process`` with a supplied condition map, 512^2, 2
+    samples, 30 steps, CFG 9: reference-mode requests (attention and AdaIN,
+    style fidelity 0.5, ref_scale 0.4, the ragged reference mask) in turns
+    with the edit-only request; PLMS, DPM-Solver++ and singlestep order 2,
+    one each after a warm-up; UniPC at encoder_interval 1, 2, 3 and 5 in
+    turns, each k's images against k = 1's from the same seed (PSNR;
+    random weights, so informational). Each request's kernel B launches
+    must be ``expected_flash_launches``: the read attention runs on B.
+    Returns each case's launches per request."""
+    from editanything_tpu_torch.pipelines.editor import EditAnythingEditor
+    editor = EditAnythingEditor(bundle)
+    cfg = bundle.unet_cfg
+    request = dict(image=_checker_image(512, 512),
+                   mask=_square_mask(512, 128, 384),
+                   prompt="a red cat sitting on a sofa", a_prompt="best quality",
+                   n_prompt="blurry, low quality",
+                   condition_image=_id_map(512, 512, 3), num_samples=2,
+                   image_resolution=512, ddim_steps=30, scale=9.0,
+                   control_scale=0.5)
+    reference = reference_args()
+    launches = {}
+
+    def run(what, kw, seed, expected):
+        counts = timed_request(
+            "ref", f"{what}, process, 512^2, 2 samples, 30 steps, CFG 9",
+            editor, editor.process, **request, **kw, seed=seed,
+            generator=torch.Generator("cuda").manual_seed(seed))
+        b_count = counts[1]["flash_attention"]
+        print(f"[ref]   kernel B launches {b_count}, expected {expected}")
+        check(b_count == expected, f"{what}: {b_count} kernel B launches, "
+                                   f"expected {expected}")
+        check(launches.setdefault(what, counts[1]) == counts[1],
+              f"{what}: launch counts differ between requests")
+        return counts[0]
+
+    warm = _synced(editor.process, **request, **reference, seed=500,
+                   generator=torch.Generator("cuda").manual_seed(500))[1]
+    print(f"[ref] warm-up reference request: {warm:.3f} s")
+    for r in range(REF_REQUESTS):                        # in turns
+        run("reference attn + AdaIN", reference, 501 + r,
+            expected_flash_launches(cfg, 30, reference=True))
+        run("edit only", {}, 501 + r, expected_flash_launches(cfg, 30))
+
+    warm = _synced(editor.process, **request, sampler="plms", seed=510,
+                   generator=torch.Generator("cuda").manual_seed(510))[1]
+    print(f"[ref] warm-up PLMS request: {warm:.3f} s")
+    for sampler in ("plms", "dpm", "dpms2"):
+        run(f"sampler {sampler}", dict(sampler=sampler), 511,
+            expected_flash_launches(cfg, 30, sampler=sampler))
+
+    images = {}
+    for r in range(REF_REQUESTS):                        # in turns
+        for k in ENCODER_INTERVALS:
+            images[k] = run(f"unipc encoder_interval {k}",
+                            dict(encoder_interval=k), 520,
+                            expected_flash_launches(cfg, 30,
+                                                    encoder_interval=k))
+    for k in ENCODER_INTERVALS[1:]:
+        print(f"[ref] encoder_interval {k}: images against k = 1 from the "
+              f"same seed, PSNR {psnr(images[k], images[1]):.2f} dB "
+              f"(random weights: informational)")
+    del editor
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _synced(fn, *args, **kwargs):
     """(result, seconds) of fn on the host clock, the device synchronised."""
     torch.cuda.synchronize()
@@ -1678,6 +1879,7 @@ def main() -> int:
     phase_sam_parity()
     bundle = phase_full_width()
     mode_launches = phase_full_width_modes()
+    mode_launches.update(phase_reference_and_samplers(bundle))
     launches = phase_main_path(bundle)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "editanything_tpu"))

@@ -129,8 +129,21 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = L.LayerNorm(dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, x, context, *, kv=None):
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x, context, *, kv=None, ref=None,
+                attn_weight: float = 0.0, hw=None):
+        """`ref` (engine/refctrl.py ``RefState``) hooks the self-attention
+        when active at `attn_weight`: the write pass banks norm1(x) of the
+        (h, w) = `hw` token grid, the read pass attends over the banks."""
+        norm_x = self.norm1(x)
+        if ref is not None and ref.attn_active(attn_weight):
+            if ref.mode == "write":
+                ref.write_attn(norm_x, hw)
+                a = self.attn1(norm_x)
+            else:
+                a = ref.read_attn(self.attn1, norm_x, hw)
+        else:
+            a = self.attn1(norm_x)
+        x = x + a
         x = x + self.attn2(self.norm2(x), context, kv=kv)
         return x + self.ff(self.norm3(x))
 
@@ -158,7 +171,8 @@ class Transformer2DModel(nn.Module):
         return {str(i): blk.attn2.project_kv(context)
                 for i, blk in enumerate(self.transformer_blocks)}
 
-    def forward(self, x, context, *, kv=None):
+    def forward(self, x, context, *, kv=None, ref=None,
+                attn_weight: float = 0.0):
         b, c, h, w = x.shape
         hidden = self.norm(x, silu=False)
         if self.use_linear:
@@ -166,7 +180,8 @@ class Transformer2DModel(nn.Module):
         else:
             hidden = self.proj_in(hidden).permute(0, 2, 3, 1).reshape(b, h * w, c)
         for i, blk in enumerate(self.transformer_blocks):
-            hidden = blk(hidden, context, kv=kv[str(i)] if kv else None)
+            hidden = blk(hidden, context, kv=kv[str(i)] if kv else None,
+                         ref=ref, attn_weight=attn_weight, hw=(h, w))
         if self.use_linear:
             hidden = self.proj_out(hidden)
         hidden = hidden.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous()

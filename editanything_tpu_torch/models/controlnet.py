@@ -4,8 +4,9 @@ Counterpart of ``editanything_tpu/models/controlnet.py``: the one-shot hint
 stack (``_hint_embedding_oneshot``, :93-101), the scalar and per-pixel
 conditioning scales (``_resize_corners``, ``_scale_residual``, :174-204),
 guess mode's residual scales (:278-283), ``context_kv``, ``apply`` (here
-``forward``) and ``multi_controlnet_apply`` (:291-317). Not ported yet: the
-tiled hint stack (ROADMAP Queue 1 item 5).
+``forward``) and ``multi_controlnet_apply`` (:291-317), with the
+reference-only control hooks on the last net (engine/refctrl.py). Not
+ported yet: the tiled hint stack (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from editanything_tpu_torch.engine import refctrl
 from editanything_tpu_torch.models import unet as U
 from editanything_tpu_torch.models.config import ControlNetConfig
 
@@ -107,22 +109,28 @@ class ControlNetModel(nn.Module):
     def forward(self, sample, timesteps, encoder_hidden_states,
                 controlnet_cond=None, *, conditioning_scale: float = 1.0,
                 conditioning_scale_map=None, guess_mode: bool = False,
-                hint_embedding=None, ctx_kv=None):
+                hint_embedding=None, ctx_kv=None, ref=None):
         """Returns (down residuals tuple, mid residual). ``hint_embedding``
         is the precomputed hint stack output (loop-invariant across steps);
         without it ``controlnet_cond`` (B, 3, 8h, 8w) in [0, 1] is encoded.
         ``conditioning_scale_map`` (B, Hm, Wm) scales every residual per
-        pixel; ``guess_mode`` scales them by ``guess_mode_scales`` first."""
+        pixel; ``guess_mode`` scales them by ``guess_mode_scales`` first.
+        ``ref``: a ``refctrl.RefState`` hooking the blocks at
+        ``controlnet_attn_weights``."""
         ucfg = self.cfg.unet
+        attn_w = (refctrl.controlnet_attn_weights(self.cfg)
+                  if ref is not None else None)
         ctx_kv = ctx_kv or {}
         temb = U.time_embed(self, ucfg, timesteps, sample.dtype)
         if hint_embedding is None:
             hint_embedding = self.hint_embedding(controlnet_cond.to(sample.dtype))
         h = self.conv_in(sample) + hint_embedding.to(sample.dtype)
         h, residuals = U.encode_blocks(self.down_blocks, h, temb,
-                                       encoder_hidden_states, ctx_kv)
+                                       encoder_hidden_states, ctx_kv, ref=ref,
+                                       attn_w=attn_w)
         h = self.mid_block(h, temb, encoder_hidden_states,
-                           kv=ctx_kv.get("mid"))
+                           kv=ctx_kv.get("mid"), ref=ref,
+                           attn_weight=attn_w["mid"] if attn_w else 0.0)
         down = [conv(r) for conv, r in zip(self.controlnet_down_blocks,
                                            residuals)]
         mid = self.controlnet_mid_block(h)
@@ -143,22 +151,23 @@ def multi_controlnet_apply(controlnets: Sequence[ControlNetModel], sample,
                            scale_map_list: Optional[Sequence] = None,
                            guess_mode: bool = False,
                            hint_embeddings: Optional[Sequence] = None,
-                           ctx_kvs: Optional[Sequence] = None):
+                           ctx_kvs: Optional[Sequence] = None, ref=None):
     """Sum the residual stacks of several ControlNets ([SAM, inpaint] on
-    the edit path); ``scale_map_list`` holds one map or None per net."""
+    the edit path); ``scale_map_list`` holds one map or None per net. `ref`
+    hooks the last (the inpaint) net only."""
     n = len(controlnets)
     scale_map_list = scale_map_list or [None] * n
     hint_embeddings = hint_embeddings or [None] * n
     ctx_kvs = ctx_kvs or [None] * n
     conds = conds or [None] * n
     down_acc = mid_acc = None
-    for net, cond, s, smap, hint, kv in zip(controlnets, conds, scales,
-                                            scale_map_list, hint_embeddings,
-                                            ctx_kvs):
+    for i, (net, cond, s, smap, hint, kv) in enumerate(zip(
+            controlnets, conds, scales, scale_map_list, hint_embeddings,
+            ctx_kvs)):
         down, mid = net(sample, timesteps, encoder_hidden_states, cond,
                         conditioning_scale=s, conditioning_scale_map=smap,
                         guess_mode=guess_mode, hint_embedding=hint,
-                        ctx_kv=kv)
+                        ctx_kv=kv, ref=ref if i == n - 1 else None)
         if down_acc is None:
             down_acc, mid_acc = list(down), mid
         else:

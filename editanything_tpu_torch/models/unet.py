@@ -5,8 +5,10 @@ Counterpart of ``editanything_tpu/models/unet.py``: ``time_embed``,
 ``context_kv``, ``encode``, ``middle``, ``decode`` and ``forward`` (the JAX
 ``apply``), with ControlNet residual injection. The down and mid blocks are
 shared with the ControlNet (models/controlnet.py), as the JAX package
-shares its encoder functions. Reference-only control hooks are not ported
-(ROADMAP Queue 1 item 4).
+shares its encoder functions. Reference-only control (engine/refctrl.py)
+hooks each transformer block's self-attention at its weight from
+``unet_attn_weights`` and, with AdaIN, the output of each plain down and up
+block's resnets and of the mid block.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from editanything_tpu_torch.core import layers as L
+from editanything_tpu_torch.engine import refctrl
 from editanything_tpu_torch.models import blocks as B
 from editanything_tpu_torch.models.config import UNetConfig
 
@@ -66,10 +69,13 @@ class MidBlock(nn.Module):
                                  use_linear=cfg.use_linear_projection,
                                  num_groups=g)])
 
-    def forward(self, h, temb, context, *, kv=None):
+    def forward(self, h, temb, context, *, kv=None, ref=None,
+                attn_weight: float = 0.0):
         h = self.resnets[0](h, temb)
-        h = self.attentions[0](h, context, kv=kv)
-        return self.resnets[1](h, temb)
+        h = self.attentions[0](h, context, kv=kv, ref=ref,
+                               attn_weight=attn_weight)
+        # the AdaIN hook wraps the whole mid block, at weight 0
+        return refctrl.gn_hook(ref, self.resnets[1](h, temb), 0.0)
 
 
 class UpBlock(nn.Module):
@@ -116,15 +122,22 @@ def time_embed(module, cfg: UNetConfig, timesteps, dtype):
     return module.time_embedding(t)
 
 
-def encode_blocks(down_blocks: nn.ModuleList, h, temb, context, ctx_kv):
-    """Down path after conv_in. Returns (hidden, residuals list)."""
+def encode_blocks(down_blocks: nn.ModuleList, h, temb, context, ctx_kv, *,
+                  ref=None, attn_w=None):
+    """Down path after conv_in. Returns (hidden, residuals list). `ref`
+    hooks the blocks at the weights `attn_w` (down.{bi}.{li} keys) and, on
+    plain blocks, at 1 - bi / (number of blocks)."""
     residuals = [h]
+    n_down = len(down_blocks)
     for bi, blk in enumerate(down_blocks):
         for li, resnet in enumerate(blk.resnets):
             h = resnet(h, temb)
             if blk.attentions is not None:
-                h = blk.attentions[li](h, context,
-                                       kv=ctx_kv.get(f"down.{bi}.{li}"))
+                key = f"down.{bi}.{li}"
+                h = blk.attentions[li](h, context, kv=ctx_kv.get(key), ref=ref,
+                                       attn_weight=attn_w[key] if attn_w else 0.0)
+            else:
+                h = refctrl.gn_hook(ref, h, refctrl.gn_weight_down(bi, n_down))
             residuals.append(h)
         if blk.downsamplers is not None:
             h = blk.downsamplers[0](h)
@@ -180,40 +193,52 @@ class UNet2DConditionModel(nn.Module):
                     kv[f"up.{bi}.{li}"] = attn.context_kv(context)
         return kv
 
-    def encode(self, sample, temb, context, *, ctx_kv=None):
+    def encode(self, sample, temb, context, *, ctx_kv=None, ref=None,
+               attn_w=None):
         """conv_in + down path. Returns (hidden, residuals)."""
         return encode_blocks(self.down_blocks, self.conv_in(sample), temb,
-                             context, ctx_kv or {})
+                             context, ctx_kv or {}, ref=ref, attn_w=attn_w)
 
-    def middle(self, h, temb, context, *, ctx_kv=None):
-        return self.mid_block(h, temb, context, kv=(ctx_kv or {}).get("mid"))
+    def middle(self, h, temb, context, *, ctx_kv=None, ref=None, attn_w=None):
+        return self.mid_block(h, temb, context, kv=(ctx_kv or {}).get("mid"),
+                              ref=ref,
+                              attn_weight=attn_w["mid"] if attn_w else 0.0)
 
-    def decode(self, h, residuals, temb, context, *, ctx_kv=None):
+    def decode(self, h, residuals, temb, context, *, ctx_kv=None, ref=None,
+               attn_w=None):
         residuals = list(residuals)
         ctx_kv = ctx_kv or {}
+        n_up = len(self.up_blocks)
         for bi, blk in enumerate(self.up_blocks):
             for li, resnet in enumerate(blk.resnets):
                 h = resnet(torch.cat([h, residuals.pop()], dim=1), temb)
                 if blk.attentions is not None:
-                    h = blk.attentions[li](h, context,
-                                           kv=ctx_kv.get(f"up.{bi}.{li}"))
+                    key = f"up.{bi}.{li}"
+                    h = blk.attentions[li](
+                        h, context, kv=ctx_kv.get(key), ref=ref,
+                        attn_weight=attn_w[key] if attn_w else 0.0)
+                else:
+                    h = refctrl.gn_hook(ref, h, refctrl.gn_weight_up(bi, n_up))
             if blk.upsamplers is not None:
                 h = blk.upsamplers[0](h)
         return self.conv_out(self.conv_norm_out(h, silu=True))
 
     def forward(self, sample, timesteps, encoder_hidden_states, *,
                 down_block_residuals=None, mid_block_residual=None,
-                ctx_kv=None):
+                ctx_kv=None, ref=None):
         """(B, C_in, H, W) latents -> (B, C_out, H, W) prediction.
-        ControlNet residual stacks arrive pre-summed."""
+        ControlNet residual stacks arrive pre-summed. `ref`: a
+        ``refctrl.RefState`` of the write or the read pass."""
+        attn_w = refctrl.unet_attn_weights(self.cfg) if ref is not None else None
         temb = self.time_embed(timesteps, sample.dtype)
         h, residuals = self.encode(sample, temb, encoder_hidden_states,
-                                   ctx_kv=ctx_kv)
-        h = self.middle(h, temb, encoder_hidden_states, ctx_kv=ctx_kv)
+                                   ctx_kv=ctx_kv, ref=ref, attn_w=attn_w)
+        h = self.middle(h, temb, encoder_hidden_states, ctx_kv=ctx_kv, ref=ref,
+                        attn_w=attn_w)
         if down_block_residuals is not None:
             residuals = [r + c.to(r.dtype)
                          for r, c in zip(residuals, down_block_residuals)]
         if mid_block_residual is not None:
             h = h + mid_block_residual.to(h.dtype)
         return self.decode(h, residuals, temb, encoder_hidden_states,
-                           ctx_kv=ctx_kv)
+                           ctx_kv=ctx_kv, ref=ref, attn_w=attn_w)

@@ -3,15 +3,18 @@
 Counterpart of ``editanything_tpu/pipelines/edit.py``
 (``make_inpaint_condition``; ``EditPipeline.__call__``, :105-278) in every
 inpaint mode ("none", "blend", "mix", and "unet9" with the 9-channel UNet),
-with UniPC or DDIM (with eta), per-pixel scale maps on the SAM control and
-guess mode. Images in and out are the JAX package's numpy HWC uint8. The
-random draws can be handed in or come from explicit generators: the initial
+with every sampler of engine/denoise.py (DDIM with eta), per-pixel scale
+maps on the SAM control, guess mode, encoder caching and reference-only
+control (``ref_image`` and its arguments, the write pass re-noising the
+reference latents with the initial noise each step). Images in and out are
+the JAX package's numpy HWC uint8. The random draws can be handed in or
+come from explicit generators: the initial
 latents (``noise``, and for "mix" the noise that re-noises the original
 before the loop, ``mix_noise``, both in the JAX package's (B, h, w, 4)
 layout) or ``generator``; the per-step noises of "mix" and of DDIM's eta
 (``step_noise``, ``eta_noise``, (steps, B, 4, h, w)) or generators seeded
-with seed + 1 and seed + 2. Not ported yet: reference-only control (ROADMAP
-Queue 1 item 4) and tile refinement (item 5).
+with seed + 1 and seed + 2. Not ported yet: tile refinement (ROADMAP Queue
+1 item 5).
 """
 
 from __future__ import annotations
@@ -21,11 +24,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from editanything_tpu_torch.engine import prompts as P
 from editanything_tpu_torch.engine.denoise import DenoiseConfig, build_denoiser
+from editanything_tpu_torch.engine.refctrl import RefConfig
 from editanything_tpu_torch.pipelines.bundle import ModelBundle
 from editanything_tpu_torch.pipelines.generate import GenerationPipeline
 from editanything_tpu_torch.samplers.schedule import add_noise, make_timesteps
-from editanything_tpu_torch.utils.image import HWC3, resize_image, resize_nearest
+from editanything_tpu_torch.utils.image import (HWC3, resize_bilinear,
+                                                resize_image, resize_nearest)
 
 
 def make_inpaint_condition(image_01: np.ndarray,
@@ -79,6 +85,48 @@ class EditPipeline(GenerationPipeline):
         mlat = mlat.expand(num_samples, -1, -1, -1).to(b.device)
         return lat, mlat
 
+    def _reference_inputs(self, ref_image, ref_mask, ref_prompt: str, h: int,
+                          w: int, image_resolution: int, num_samples: int,
+                          conds, scales, ref_sam_scale, ref_inpaint_scale):
+        """The write pass's inputs: the reference image resized to the
+        edit's size and VAE-encoded; its mask at latent size (>= 0.5); the
+        reference prompt's cond-only context; the main conditions with the
+        last replaced by the reference image; and the write pass's scales
+        where either is given (the main scales otherwise)."""
+        if ref_mask is None:
+            raise ValueError("ref_image needs ref_mask (the reference region)")
+        b = self.bundle
+        rimg = resize_image(HWC3(ref_image.astype(np.uint8)), image_resolution)
+        rimg = torch.from_numpy(rimg.astype(np.float32)).permute(2, 0, 1)[None]
+        rimg = resize_bilinear(rimg, (h, w))
+        rlat = self._encode((rimg / 127.5 - 1.0).to(b.device, b.dtype))
+        rm = np.asarray(ref_mask, np.float32)
+        if rm.ndim == 3:
+            rm = rm[..., 0]
+        if rm.max() > 1.5:
+            rm = rm / 255.0
+        rm = resize_nearest(torch.from_numpy(np.ascontiguousarray(rm))[None, None],
+                            (h // 8, w // 8))
+        ref_ctx, _ = P.get_pipeline_embeds(b.text, b.tokenizer, ref_prompt, "")
+        ref_conds = [c[:num_samples] for c in conds]
+        ref_conds[-1] = (rimg / 255.0).expand(num_samples, -1, -1, -1).to(
+            b.device, b.dtype)
+        inputs = {
+            "ref_image_latents": rlat.float().expand(num_samples, -1, -1, -1),
+            "ref_mask": (rm >= 0.5).float().to(b.device),
+            "ref_context": ref_ctx.expand(num_samples, -1, -1).to(b.dtype),
+            "ref_controlnet_conds": ref_conds,
+        }
+        if ref_sam_scale is not None or ref_inpaint_scale is not None:
+            rs = [float(ref_sam_scale if ref_sam_scale is not None
+                        else scales[0])]
+            if len(self.controls) > 1:
+                rs.append(float(ref_inpaint_scale
+                                if ref_inpaint_scale is not None
+                                else scales[-1]))
+            inputs["ref_controlnet_scales"] = rs
+        return inputs
+
     @torch.inference_mode()
     def __call__(self, *, image: np.ndarray, mask: np.ndarray, prompt: str,
                  condition_image: np.ndarray, negative_prompt: str = "",
@@ -93,7 +141,15 @@ class EditPipeline(GenerationPipeline):
                  return_latents: bool = False,
                  generator: Optional[torch.Generator] = None,
                  noise=None, mix_noise=None, step_noise=None,
-                 eta_noise=None) -> np.ndarray:
+                 eta_noise=None, ref_image: Optional[np.ndarray] = None,
+                 ref_mask: Optional[np.ndarray] = None,
+                 ref_prompt: Optional[str] = None,
+                 reference_attn: bool = True, reference_adain: bool = False,
+                 attention_auto_weight: float = 1.0,
+                 gn_auto_weight: float = 1.0, style_fidelity: float = 0.5,
+                 ref_scale: float = 0.0,
+                 ref_sam_scale: Optional[float] = None,
+                 ref_inpaint_scale: Optional[float] = None) -> np.ndarray:
         """Returns (num_samples, H, W, 3) uint8 edited images, or with
         return_latents the final (num_samples, H/8, W/8, 4) fp32 latents.
 
@@ -102,18 +158,36 @@ class EditPipeline(GenerationPipeline):
         bundle's device; default: seeded with `seed`), which also draws
         `mix_noise` when "mix" needs it and it is not given. `scale_map`
         (Hm, Wm) scales the SAM control per pixel. `eta` counts for DDIM
-        only."""
+        only. `encoder_interval` k > 1 runs the encoder half of the model
+        every k-th step only (UniPC and DDIM; approximate), and is 1 under
+        reference control.
+
+        `ref_image` with `ref_mask` (its region, HxW 0-1 or 0-255) turns on
+        reference-only control: `reference_attn` / `reference_adain` the
+        attention and AdaIN hooks (each at blocks whose weight is below
+        `attention_auto_weight` / at most `gn_auto_weight`),
+        `style_fidelity` how far the uncond rows keep their own features,
+        `ref_scale` the FFT magnitude mix, `ref_prompt` the write pass's
+        prompt (default: `prompt`), `ref_sam_scale` / `ref_inpaint_scale`
+        its ControlNet scales (default: the main ones)."""
         b = self.bundle
         device = b.device
         schedule = b.noise_schedule()
         img, m, h, w = self._prep(image, mask, image_resolution)
+        ref_cfg = None
+        if ref_image is not None:
+            ref_cfg = RefConfig(
+                reference_attn=reference_attn, reference_adain=reference_adain,
+                attention_auto_weight=attention_auto_weight,
+                gn_auto_weight=gn_auto_weight, style_fidelity=style_fidelity,
+                ref_scale=ref_scale, do_cfg=True)
         dcfg = DenoiseConfig(
             unet=b.unet_cfg, controlnets=b.controlnet_cfgs(self.controls),
             num_steps=num_steps, sampler=sampler, guess_mode=guess_mode,
             eta=float(eta) if sampler == "ddim" else 0.0,
             inpaint_mode=self.inpaint_mode, alignment_ratio=alignment_ratio,
-            alpha_weight=alpha_weight,
-            encoder_interval=encoder_interval)
+            alpha_weight=alpha_weight, ref=ref_cfg,
+            encoder_interval=encoder_interval if ref_cfg is None else 1)
         ts = make_timesteps(num_steps, spacing=dcfg.timestep_spacing)
         denoise = build_denoiser(dcfg, schedule, ts)
 
@@ -157,6 +231,11 @@ class EditPipeline(GenerationPipeline):
             inputs["controlnet_scale_maps"] = [
                 self.prepare_scale_map(scale_map, h, w, num_samples)
             ] + [None] * (len(conds) - 1)
+        if ref_cfg is not None:
+            inputs.update(self._reference_inputs(
+                ref_image, ref_mask, prompt if ref_prompt is None else ref_prompt,
+                h, w, image_resolution, num_samples, conds, scales,
+                ref_sam_scale, ref_inpaint_scale))
         if self.inpaint_mode == "mix":
             # outside the mask the loop starts from the re-noised original
             renoised = add_noise(schedule, image_latents, self.initial_latents(

@@ -8,14 +8,18 @@ click-to-segment entry point. Images in and out are numpy HWC uint8. The
 SAM resize is torch (``resize_uint8_bilinear``), so this path needs no PIL
 as long as ``resize_image`` has nothing to resize.
 
-``process`` also takes DDIM's ``eta``, the per-pixel scale map of the SAM
-control (``use_scale_map``, derived from the mask unless ``scale_map`` is
-given) and alpha mixing (``use_alpha_mixing``, ``alpha_weight``, through
-the "mix" pipeline). Not ported yet; set to anything but its default, each
-raises ``NotImplementedError`` naming its ROADMAP item: reference-only
-arguments (Queue 1 item 4), tile refinement (item 5), auto prompt,
-condition-model swap, the ref image's caption and textual inversion, and
-``EA_SAVE_INPUTS`` capture (item 7).
+``process`` also takes every sampler, DDIM's ``eta``, the per-pixel scale
+map of the SAM control (``use_scale_map``, derived from the mask unless
+``scale_map`` is given), alpha mixing (``use_alpha_mixing``,
+``alpha_weight``, through the "mix" pipeline), reference-only control
+(``ref_image``, ``ref_mask``, ``ref_prompt``, ``reference_attn``,
+``reference_adain``, ``attention_auto_weight``, ``gn_auto_weight``,
+``style_fidelity``, ``ref_scale``, ``ref_sam_scale``,
+``ref_inpaint_scale``) and, beyond the JAX editor's arguments,
+``encoder_interval``. Not ported yet; set to anything but its default, each
+raises ``NotImplementedError`` naming its ROADMAP item: tile refinement
+(Queue 1 item 5), auto prompt, condition-model swap, the ref image's
+caption and textual inversion, and ``EA_SAVE_INPUTS`` capture (item 7).
 """
 
 from __future__ import annotations
@@ -43,20 +47,9 @@ _NOT_PORTED = {
     "enable_tile": (False, "Queue 1 item 5 (tile refinement)"),
     "refine_image_resolution": (1024, "Queue 1 item 5 (tile refinement)"),
     "refine_alignment_ratio": (0.95, "Queue 1 item 5 (tile refinement)"),
-    "ref_image": (None, "Queue 1 item 4 (reference-only control)"),
-    "ref_mask": (None, "Queue 1 item 4 (reference-only control)"),
-    "ref_prompt": (None, "Queue 1 item 4 (reference-only control)"),
     "ref_auto_prompt": (False, "Queue 1 item 7 (captioner)"),
     "ref_textinv": (False, "Queue 1 item 7 (textual inversion)"),
     "ref_textinv_path": (None, "Queue 1 item 7 (textual inversion)"),
-    "reference_attn": (True, "Queue 1 item 4 (reference-only control)"),
-    "reference_adain": (False, "Queue 1 item 4 (reference-only control)"),
-    "attention_auto_weight": (1.0, "Queue 1 item 4 (reference-only control)"),
-    "gn_auto_weight": (1.0, "Queue 1 item 4 (reference-only control)"),
-    "style_fidelity": (0.5, "Queue 1 item 4 (reference-only control)"),
-    "ref_scale": (0.0, "Queue 1 item 4 (reference-only control)"),
-    "ref_sam_scale": (None, "Queue 1 item 4 (reference-only control)"),
-    "ref_inpaint_scale": (None, "Queue 1 item 4 (reference-only control)"),
 }
 
 
@@ -157,6 +150,16 @@ class EditAnythingEditor:
                 scale_map: Optional[np.ndarray] = None,
                 alpha_weight: float = 0.5, use_alpha_mixing: bool = False,
                 alignment_ratio: Optional[float] = None,
+                encoder_interval: int = 1,
+                ref_image: Optional[np.ndarray] = None,
+                ref_mask: Optional[np.ndarray] = None,
+                ref_prompt: Optional[str] = None,
+                reference_attn: bool = True, reference_adain: bool = False,
+                attention_auto_weight: float = 1.0,
+                gn_auto_weight: float = 1.0, style_fidelity: float = 0.5,
+                ref_scale: float = 0.0,
+                ref_sam_scale: Optional[float] = None,
+                ref_inpaint_scale: Optional[float] = None,
                 generator: Optional[torch.Generator] = None, noise=None,
                 mix_noise=None, step_noise=None, eta_noise=None,
                 **not_ported):
@@ -166,7 +169,8 @@ class EditAnythingEditor:
         `use_scale_map` scales the SAM control per pixel by `scale_map`, or
         when none is given by 1 - the binarised mask (the SAM control off
         inside the edit region); `use_alpha_mixing` runs the "mix" edit.
-        `generator` and the noises go to ``EditPipeline`` as it takes them."""
+        The reference-only arguments, `encoder_interval`, `generator` and
+        the noises go to ``EditPipeline`` as it takes them."""
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"process() got an unexpected argument {name!r}")
@@ -202,9 +206,16 @@ class EditAnythingEditor:
             control_scale=control_scale, sampler=sampler, eta=eta,
             scale_map=scale_map if use_scale_map else None,
             alignment_ratio=alignment_ratio, alpha_weight=alpha_weight,
-            guess_mode=guess_mode, seed=seed, generator=generator,
+            guess_mode=guess_mode, seed=seed,
+            encoder_interval=encoder_interval, generator=generator,
             noise=noise, mix_noise=mix_noise, step_noise=step_noise,
-            eta_noise=eta_noise)
+            eta_noise=eta_noise, ref_image=ref_image, ref_mask=ref_mask,
+            ref_prompt=ref_prompt, reference_attn=reference_attn,
+            reference_adain=reference_adain,
+            attention_auto_weight=attention_auto_weight,
+            gn_auto_weight=gn_auto_weight, style_fidelity=style_fidelity,
+            ref_scale=ref_scale, ref_sam_scale=ref_sam_scale,
+            ref_inpaint_scale=ref_inpaint_scale)
         self.last_nonfinite = pipe.last_nonfinite
         return ([], [results[i] for i in range(len(results))],
                 [condition_image, mask], positive)

@@ -4,12 +4,13 @@ scale maps, prompt context, VAE encode, initial latents and per-step noise.
 
 Counterpart of ``editanything_tpu/pipelines/generate.py``
 (``GenerationPipeline.__call__``, :168-229, with ``to_uint8``,
-``prepare_condition``, ``embed_prompts`` and ``_encode``) for UniPC and
-DDIM, per-pixel scale maps and guess mode. Two additions, as in
+``prepare_condition``, ``embed_prompts`` and ``_encode``) for every sampler
+of engine/denoise.py, encoder caching, per-pixel scale maps and guess mode.
+Two additions, as in
 ``EditPipeline``: the initial latents can be handed in (``noise``) or drawn
 from an explicit ``generator``. No safety checker is loaded (the JAX
-bundle's default), so the images pass through. Not ported yet: encoder
-caching (ROADMAP Queue 1 item 4) and the tiled VAE (item 5).
+bundle's default), so the images pass through. Not ported yet: the tiled
+VAE (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -144,17 +145,17 @@ class GenerationPipeline:
         initial latents are `noise` when given ((num_samples, H/8, W/8, 4)),
         else drawn from `generator` (default: seeded with `seed`).
         `scale_map` (Hm, Wm) scales the ControlNet per pixel; DDIM runs with
-        eta 0, as the JAX pipeline's."""
-        if encoder_interval != 1:
-            raise NotImplementedError("not ported yet: encoder_interval > 1 "
-                                      "(ROADMAP Queue 1 item 4)")
+        eta 0, as the JAX pipeline's. `encoder_interval` k > 1 runs the
+        encoder half of the model every k-th step only (UniPC and DDIM;
+        approximate)."""
         b = self.bundle
         sized = resize_image(HWC3(condition_image.astype(np.uint8)),
                              image_resolution)
         h, w = sized.shape[:2]
         dcfg = DenoiseConfig(
             unet=b.unet_cfg, controlnets=b.controlnet_cfgs((self.controlnet,)),
-            num_steps=num_steps, sampler=sampler, guess_mode=guess_mode)
+            num_steps=num_steps, sampler=sampler, guess_mode=guess_mode,
+            encoder_interval=encoder_interval)
         denoise = build_denoiser(
             dcfg, b.noise_schedule(),
             make_timesteps(num_steps, spacing=dcfg.timestep_spacing))

@@ -1,1 +1,1 @@
-"""Noise schedule and the UniPC sampler."""
+"""Noise schedule and the samplers: UniPC, DDIM, PLMS, DPM-Solver."""

@@ -150,7 +150,7 @@ def test_process_with_sam_condition_matches_jax(editors):
 
 
 @pytest.mark.parametrize("arg,value", [("enable_tile", True),
-                                       ("ref_image", np.zeros((8, 8, 3))),
+                                       ("ref_textinv", True),
                                        ("condition_model", "other"),
                                        ("enable_auto_prompt", True)])
 def test_process_refuses_arguments_not_ported(editors, arg, value):

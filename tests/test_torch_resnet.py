@@ -177,11 +177,14 @@ def test_txt2img_matches_jax(monkeypatch, bundles, jax_generation, fused):
 
 
 def test_txt2img_refuses_unported_options(bundles):
+    """Every sampler and encoder caching are ported: what txt2img refuses is
+    a sampler the package does not have and caching under guess mode (as
+    the JAX package asserts)."""
     pipe = GenerationPipeline(bundles[1], controlnet="sam")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        pipe(**GEN_ARGS, sampler="plms")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        pipe(**GEN_ARGS, encoder_interval=2)
+    with pytest.raises(ValueError, match="unknown sampler"):
+        pipe(**GEN_ARGS, sampler="euler")
+    with pytest.raises(ValueError, match="encoder caching"):
+        pipe(**GEN_ARGS, encoder_interval=2, guess_mode=True)
 
 
 def test_switch_is_read_per_call_and_cpu_takes_the_twin(monkeypatch):

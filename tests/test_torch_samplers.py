@@ -177,3 +177,110 @@ def test_unipc_vpred_steps_match_jax():
         scale = max(1.0, float(np.abs(np.asarray(jprev)).max()))
         np.testing.assert_allclose(tprev.numpy(), np.asarray(jprev),
                                    atol=TOL * scale, rtol=0, err_msg=f"step {i}")
+
+
+# --- PLMS and DPM-Solver ------------------------------------------------------
+
+def _close_scaled(got, want, what):
+    """TOL relative to the step's largest latent (x0 extrapolation divides
+    by sqrt(abar) at high t, so the bound scales like the UniPC ones)."""
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL * scale, rtol=0,
+                               err_msg=what)
+
+
+@pytest.mark.parametrize("prediction_type", ["epsilon", "v_prediction"])
+def test_plms_steps_match_jax(prediction_type):
+    """A whole PLMS trajectory with the warm-up's second output at step 0
+    and the last step to the clean state, the same model outputs fed to
+    both."""
+    from editanything_tpu.samplers import plms as JPL
+    from editanything_tpu_torch.samplers import plms as TPL
+    js = JS.make_schedule(prediction_type=prediction_type)
+    ts = TS.make_schedule(prediction_type=prediction_type)
+    grid = [int(v) for v in JS.make_timesteps(6)]
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((2, 4, 8, 8), np.float32)
+    jstate, tstate = JPL.plms_init(jnp.asarray(x)), TPL.plms_init(torch.from_numpy(x))
+    for i, t in enumerate(grid):
+        t_prev = grid[i + 1] if i + 1 < len(grid) else -1
+        out, out_next = (rng.standard_normal(x.shape, np.float32)
+                         for _ in range(2))
+        jstate, jprev = JPL.plms_step(js, jstate, jnp.asarray(out),
+                                      jnp.asarray(out_next), jnp.asarray(t),
+                                      jnp.asarray(t_prev), jnp.asarray(i))
+        tstate, tprev = TPL.plms_step(ts, tstate, torch.from_numpy(out),
+                                      torch.from_numpy(out_next), t, t_prev, i)
+        _close_scaled(tprev, jprev, f"step {i}")
+        for k in range(3):
+            _close_scaled(tstate.eps_hist[k], jstate.eps_hist[k],
+                          f"step {i} eps history {k}")
+    # the warm-up's first-order step, which the loop feeds back to the model
+    eps = TPL._to_eps(ts, torch.from_numpy(x), torch.from_numpy(out), 999)
+    _close_scaled(TPL._x_prev(ts, torch.from_numpy(x), eps, 999, 832),
+                  JPL._x_prev(js, jnp.asarray(x), jnp.asarray(eps.numpy()),
+                              jnp.asarray(999), jnp.asarray(832)), "x_prev")
+
+
+@pytest.mark.parametrize("order", [2, 3])
+@pytest.mark.parametrize("prediction_type", ["epsilon", "v_prediction"])
+def test_dpm_multistep_matches_jax(order, prediction_type):
+    """DPM-Solver++ multistep over 7 steps: the ramp-up, order 3 in the
+    middle and the tail drop to the clean state."""
+    from editanything_tpu.samplers import dpm as JD
+    from editanything_tpu_torch.samplers import dpm as TD
+    js = JS.make_schedule(prediction_type=prediction_type)
+    ts = TS.make_schedule(prediction_type=prediction_type)
+    grid = JS.make_timesteps(7)
+    rng = np.random.default_rng(22 + order)
+    x = rng.standard_normal((2, 4, 8, 8), np.float32)
+    jstate, tstate = JD.dpm_init(jnp.asarray(x)), TD.dpm_init(torch.from_numpy(x))
+    for i in range(len(grid)):
+        out = rng.standard_normal(x.shape, np.float32)
+        jstate, jprev = JD.dpm_step(js, jstate, jnp.asarray(out),
+                                    jnp.asarray(grid), jnp.asarray(i),
+                                    order=order)
+        tstate, tprev = TD.dpm_step(ts, tstate, torch.from_numpy(out), grid, i,
+                                    order=order)
+        _close_scaled(tprev, jprev, f"step {i}")
+        _close_scaled(tstate.x0_prev, jstate.x0_prev, f"step {i} x0")
+        assert abs(float(tstate.h_prev) - float(jstate.h_prev)) <= 1e-5 * max(
+            1.0, abs(float(jstate.h_prev)))
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+@pytest.mark.parametrize("steps", [5, 20, 30])
+def test_singlestep_plan_matches_jax(order, steps):
+    from editanything_tpu.samplers import dpm as JD
+    from editanything_tpu_torch.samplers import dpm as TD
+    want = JD.singlestep_plan(JS.make_schedule(), steps, order)
+    got = TD.singlestep_plan(TS.make_schedule(), steps, order)
+    for field in want._fields:
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field), err_msg=field)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3])
+def test_singlestep_steps_match_jax(order):
+    """Every evaluation of an 8-evaluation singlestep run (a leftover block,
+    full blocks, the order-1 block to the clean state)."""
+    from editanything_tpu.samplers import dpm as JD
+    from editanything_tpu_torch.samplers import dpm as TD
+    js, ts = JS.make_schedule(), TS.make_schedule()
+    plan = TD.singlestep_plan(ts, 8, order)
+    jplan = [jnp.asarray(getattr(plan, f)) for f in plan._fields]
+    rng = np.random.default_rng(30 + order)
+    x = rng.standard_normal((2, 4, 8, 8), np.float32)
+    jstate = JD.singlestep_init(jnp.asarray(x))
+    tstate = TD.singlestep_init(torch.from_numpy(x))
+    for i in range(len(plan.ts)):
+        out = rng.standard_normal(x.shape, np.float32)
+        jstate, jprev = JD.singlestep_step(js, jstate, jnp.asarray(out),
+                                           *jplan, jnp.asarray(i))
+        tstate, tprev = TD.singlestep_step(ts, tstate, torch.from_numpy(out),
+                                           plan, i)
+        _close_scaled(tprev, jprev, f"evaluation {i}")
+        for f in ("x_s", "m_s", "m_s1"):
+            _close_scaled(getattr(tstate, f), getattr(jstate, f),
+                          f"evaluation {i} {f}")

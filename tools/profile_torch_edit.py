@@ -4,11 +4,14 @@
     python3 tools/profile_torch_edit.py        # from the repository root; one CUDA GPU
     python3 tools/profile_torch_edit.py --sam  # the SAM phase of the main path
     python3 tools/profile_torch_edit.py --fused  # the edit, every resnet fused
+    python3 tools/profile_torch_edit.py --reference  # a reference-mode edit
 
 The configuration is chip_smoke.py's phase 4: SD1.5 UNet + two ControlNets +
 VAE + CLIP-L at published widths, random bf16 weights from seed 0, a 512^2
 edit at the reference UI's default point (2 samples, 30 UniPC steps, CFG 9)
-through ``EditPipeline``. After one warm-up request it runs:
+through ``EditPipeline``. After one warm-up request (its host ops traced:
+the ops with the most self time, which is where first-use costs show) it
+runs:
   1. five untraced requests on the host clock (the spread within a process);
   2. one request with every call of the text encoder, the ControlNets, the
      UNet and the VAE encoder and decoder bracketed by
@@ -20,7 +23,10 @@ through ``EditPipeline``. After one warm-up request it runs:
      slows the host, so that idle share is an upper bound; the line after
      it sets the busy time against the untraced requests.
 With ``--fused`` the edit runs with EA_RESNET_FUSED=1, so that every resnet
-block goes through the fused resnet kernel. With ``--sam`` it profiles the SAM phase instead, as chip_smoke.py's phase
+block goes through the fused resnet kernel. With ``--reference`` it is
+chip_smoke.py's phase-4c reference request (``reference_args``: attention
+and AdaIN hooks, the FFT mix, the ragged reference mask), whose write pass
+calls the UNet and the ControlNets once more a step. With ``--sam`` it profiles the SAM phase instead, as chip_smoke.py's phase
 5 runs it: SAM ViT-H with random bf16 weights (seed 7) in
 ``EditAnythingEditor.get_sam_control`` on a 512^2 image (encoder at 1024^2,
 the 32x32-point AMG in 4 batches of 256, selection and NMS, the ID map):
@@ -59,6 +65,7 @@ CATEGORIES = [
      ("::stats_x_kernel<", "::norm_x_kernel<", "::tile_stats_kernel<",
       "::fin2_kernel<", "::norm_h_kernel<", "::store_out_kernel<")),
     ("GroupNorm+SiLU (csrc/group_norm.cu)", ("::gn_kernel<",)),
+    ("FFT (reference control's magnitude mix)", ("fft",)),
     ("cuDNN layout NCHW->NHWC", ("nchwToNhwc",)),
     ("cuDNN layout NHWC->NCHW", ("nhwcToNchw",)),
     ("convolution", ("fprop", "convolve", "conv2d", "implicit_gemm")),
@@ -223,7 +230,7 @@ def main() -> int:
     print(smi)
     bundle = random_bundle(tiny=False, dtype=torch.bfloat16, device="cuda",
                            generator=torch.Generator("cuda").manual_seed(0))
-    if sys.argv[1:] not in ([], ["--sam"], ["--fused"]):
+    if sys.argv[1:] not in ([], ["--sam"], ["--fused"], ["--reference"]):
         print(__doc__, file=sys.stderr)
         return 2
     if sys.argv[1:] == ["--sam"]:
@@ -233,6 +240,8 @@ def main() -> int:
     pipe = EditPipeline(bundle, controls=("sam", "inpaint"),
                         inpaint_mode="blend")
     request = chip_smoke.full_width_request()
+    if sys.argv[1:] == ["--reference"]:
+        request.update(chip_smoke.reference_args())
 
     def one(seed):
         torch.cuda.synchronize()
@@ -240,7 +249,15 @@ def main() -> int:
         pipe(**request, generator=torch.Generator("cuda").manual_seed(seed))
         return time.perf_counter() - t
 
-    print(f"[profile] warm-up request: {one(100):.3f} s")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        warm = one(100)
+    print(f"[profile] warm-up request: {warm:.3f} s (host ops traced); the "
+          f"host ops with the most self time:")
+    for e in sorted(prof.key_averages(),
+                    key=lambda e: -e.self_cpu_time_total)[:8]:
+        print(f"[profile]   {e.self_cpu_time_total / 1e6:.3f} s in {e.count} "
+              f"calls: {e.key}")
     counters = (FA.flash_attention, K.group_norm_silu, K.resnet_fused)
     for fn in counters:
         fn.launches = 0
@@ -265,6 +282,7 @@ def main() -> int:
     twall, n, busy, _, by_cat, _ = trace
     print(json.dumps({
         "device": smi, "resnets": "fused" if fused else "composed",
+        "reference": sys.argv[1:] == ["--reference"],
         "untraced_s": untraced, "launches": launches,
         "components_s": seconds, "component_calls": calls,
         "synchronised_request_s": wall, "traced_request_s": twall,
