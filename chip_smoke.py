@@ -31,7 +31,13 @@ non-zero, and nothing is caught:
      resnet block at five UNet and VAE shapes, with its plan, its GN2
      scale and shift against the twin's, its share of the bound, and timed
      against the composed block (cuDNN convs + the GroupNorm kernel) and
-     the cuDNN convs alone (NCHW and channels-last);
+     the cuDNN convs alone (NCHW and channels-last); the high-resolution
+     shapes of phase 4d: flash attention at 128x128 (UNet self and cross,
+     the VAE's D = 512) and 288x288, launched at the full shape with
+     HIRES_ROWS query rows held against the twin on those rows (planted
+     faults there), beside its bound and SDPA; GroupNorm at 128x128 and
+     the VAE decoder's 1024^2 slabs, and once at 2^31 elements (three
+     slabs against the twin); the fused resnet block at 128x128;
   3. parity: the tiny edit of tests/test_torch_edit.py (with 64^2 inputs,
      which need no PIL to resize; 2 samples, 4 UniPC steps, CFG 9) with the
      same random weights and noise, in fp32 on the GPU (kernels) against
@@ -44,11 +50,15 @@ non-zero, and nothing is caught:
      and the 9-channel "unet9" edit; a tiny reference-mode edit (the
      attention and AdaIN hooks and the FFT mix) in fp32 and bf16 as the
      tiny edit, and PLMS, DPM-Solver++ order 3, singlestep order 2 and UniPC
-     with encoder_interval 2 in fp32, images within 1 level; then a small
-     SAM with the published
+     with encoder_interval 2 in fp32, images within 1 level; the
+     high-resolution surface in fp32 (tile refinement 64^2 -> 128^2
+     through ``tile_refine`` and ``process(enable_tile=True)``, img2img, a
+     sketch, txt2img and an edit whose VAE runs in 2 x 2 tiles), images
+     within 2 levels; then a small SAM with the published
      decoder widths (so the decoder kernels launch): a 4x4-point AMG with
      the quality filters open and one click;
-  4. full width, edit only: SD1.5 UNet + two ControlNets (zero convs drawn
+  4. full width, edit only: SD1.5 UNet + three ControlNets (sam, inpaint
+     and tile, drawn last; zero convs drawn
      nonzero) + VAE + CLIP-L at published widths, random weights from a
      seed, bf16: one denoise step (batch 4) with the resnets fused and
      composed, each against an fp32 composed step; one warm-up and timed
@@ -76,6 +86,15 @@ non-zero, and nothing is caught:
      images' PSNR against k = 1's; each request as in phase 4b, its kernel
      B launches equal to ``expected_flash_launches`` (the read attention on
      kernel B);
+  4d. high resolution, the same bundle: the one-shot hint stack at 4096^2
+     (peak memory); ``process(enable_tile=True)`` at the UI's defaults
+     (512^2, 2 samples, 30 steps, CFG 9, refined to 1024^2), a warm-up and
+     a timed request split into the edit and the tile pass's encode,
+     denoise and decode; one request refined to 2304^2 (1 sample, 2
+     steps: the VAE in 3 x 3 tiles); one img2img (strength 0.75, the SAM
+     ControlNet) and one sketch (its scale map) at 512^2; each with its
+     seconds, peak memory, kernel B launches equal to what its path
+     predicts, kernel A's, and finite outputs of the expected shapes;
   5. the main path: SAM ViT-H (random bf16 weights) and the same bundle in
      ``EditAnythingEditor``; one warm-up and three timed
      ``process(condition_image=None)`` requests (SAM at 1024^2, the AMG,
@@ -152,6 +171,28 @@ ATTN_SHAPES = [
     ("sd21 16x16 self", 4, 20, 256, 256, 64, 64, None),
     ("sd21 8x8 self", 4, 20, 64, 64, 64, 64, None),
 ]
+# kernel B at the high-resolution path's shapes (phase 4d), bf16 only (the
+# path's dtype): tile refinement at 1024^2, 2 samples under CFG (the UNet's
+# and the tile ControlNet's 128x128 level; the one-shot VAE decode's mid
+# attention at batch 2, as each 1024^2 tile of a tiled one at batch 1) and
+# at 2304^2, 1 sample (the 288x288 level). Their fp32 logits do not fit the
+# plain twin (34 GB at 128x128 self; 82944^2 not at all), so the kernel
+# runs at the full shape and HIRES_ROWS of its query rows, the first and the
+# last half, are held against the twin run on those rows alone: rows are
+# independent in attention, so the slice is the same function
+HIRES_ATTN_SHAPES = [
+    ("unet 128x128 self", 4, 8, 16384, 16384, 40, 40, None),
+    ("unet 128x128 cross", 4, 8, 16384, 77, 40, 40, None),
+    ("vae mid 128x128", 2, 1, 16384, 16384, 512, 512, None),
+    ("unet 288x288 self", 2, 8, 82944, 82944, 40, 40, None),
+]
+HIRES_ROWS = 512
+# phase 4d: the one-shot ControlNet hint stack at 4096^2 (2 samples); the
+# edit's side, the UI's default refine side and one above the one-shot
+# VAE bound (3 x 3 tiles of 1024^2 each way)
+HINT_STACK_SHAPE = (2, 3, 4096, 4096)
+HIRES_SIDES = (512, 1024, 2304)
+HIRES_BIG_VAE_TILES = 9
 # (label, NCHW shape, eps, SiLU): in bf16 one CTA per slab at most UNet
 # shapes, clusters of 2 (UNet 64x64x960), 8 and 16 CTAs (the VAE) holding
 # their shares on chip, and the VAE decoder's 4 MB slabs held in part and
@@ -168,7 +209,16 @@ GN_SHAPES = [
     ("vae decoder 512x512x128", (2, 128, 512, 512), 1e-6, True),
     ("vae encoder 512x512x128", (1, 128, 512, 512), 1e-6, True),
     ("vae decoder 512x512x256", (2, 256, 512, 512), 1e-6, True),
+    # tile refinement at 1024^2 (phase 4d): the UNet's 128x128 level and the
+    # VAE decoder's 16 and 8 MB slabs, streamed several times over
+    ("unet resnet 128x128x320", (4, 320, 128, 128), 1e-5, True),
+    ("vae decoder 1024x1024x256", (2, 256, 1024, 1024), 1e-6, True),
+    ("vae decoder 1024x1024x128", (2, 128, 1024, 1024), 1e-6, True),
 ]
+# a one-shot 2048^2 decode of 2 samples: its 256-channel activation holds
+# 2^31 elements, and image 1 starts 2^31 bytes in (kernel A's slab bases
+# are 64-bit, its offsets inside a slab 32-bit)
+GN_OFFSET_SHAPE = (2, 256, 2048, 2048)
 # bounds on the max abs error against the plain twin, with their reasons:
 #  attention fp32 1e-4: exact fp32 products, sums and exp in other orders;
 #  attention bf16 2^-6 * max|twin's output|: both sides hold fp32 sums and
@@ -288,6 +338,7 @@ RESNET_SHAPES = [
     ("unet 8x8 2560->1280", 4, 2560, 1280, True, 8, 1e-5),
     ("vae 512x512 128->128", 2, 128, 128, False, 512, 1e-6),
     ("vae 512x512 256->128", 2, 256, 128, False, 512, 1e-6),
+    ("unet 128x128 320->320", 4, 320, 320, True, 128, 1e-5),
 ]
 # its bounds against the twin: fp32 1e-4 (exact fp32 products summed in
 # other orders; outputs ~10); bf16 both of: max abs error 2^-6 x max|twin's
@@ -620,6 +671,98 @@ def phase_kernels():
             del x, got, want
     torch.cuda.empty_cache()
     return headline
+
+
+def hires_rows(n: int) -> torch.Tensor:
+    """The query rows held against the twin: the first and last halves of
+    HIRES_ROWS (all of them where n is no larger)."""
+    half = min(HIRES_ROWS, n) // 2
+    return torch.cat([torch.arange(half), torch.arange(n - half, n)]).cuda()
+
+
+def phase_hires_kernels():
+    """Kernel B at HIRES_ATTN_SHAPES, launched at the full shape, HIRES_ROWS
+    of its rows against the twin on those rows, with the planted faults
+    there (and, past 2^16 keys, the keys beyond 2^16 dropped, as a 16-bit
+    key index would), timed beside SDPA and its bound; then kernel A at
+    GN_OFFSET_SHAPE against the twin on three slabs."""
+    from editanything_tpu_torch.core import flash_attention as FA
+    from editanything_tpu_torch.core import kernels as K
+    plain = FA.flash_attention_reference
+    g = torch.Generator("cuda").manual_seed(21)
+    for label, b, h, n, m, dqk, dv, scale in HIRES_ATTN_SHAPES:
+        q = torch.randn(b, h, n, dqk, generator=g, device="cuda").bfloat16()
+        k = torch.randn(b, h, m, dqk, generator=g, device="cuda").bfloat16()
+        v = torch.randn(b, h, m, dv, generator=g, device="cuda").bfloat16()
+        got = FA.flash_attention(q, k, v, scale=scale)
+        rows = hires_rows(n)
+        q_rows = q[:, :, rows].contiguous()
+        want = plain(q_rows, k, v, scale=scale)
+        torch.cuda.synchronize()
+        err = max_err(got[:, :, rows], want)
+        bound = attention_bound(torch.bfloat16, want)
+        faults = attention_faults(q_rows, k, v, want, scale)
+        if m > 2 ** 16:
+            faults["keys past 2^16 dropped"] = max_err(plain(
+                q_rows, k[:, :, :2 ** 16], v[:, :, :2 ** 16], scale=scale), want)
+        reps = 10 if m <= 16384 else 3
+        ms = cuda_ms(lambda: FA.flash_attention(q, k, v, scale=scale), reps,
+                     warmup=1)
+        plain_rows = cuda_ms(lambda: plain(q_rows, k, v, scale=scale), 3,
+                             warmup=1)
+        sdpa = cuda_ms(lambda: sdpa_call(q, k, v, scale), reps, warmup=1)
+        least, by = bound_ms(*attention_work(b, h, n, m, dqk, dv))
+        print(f"[kernel] flash_attention bf16 {label} {(b, h, n, m, dqk, dv)}: "
+              f"{len(rows)} of {n} rows against the twin: max_abs_err "
+              f"{err:.3e} <= {bound:.3e} (max|out| "
+              f"{want.float().abs().max().item():.3e}); kernel {ms:.4f} ms, "
+              f"plain on those rows {plain_rows:.4f} ms, bound {least:.4f} ms "
+              f"({by}, {100 * least / ms:.1f}% of it), SDPA {sdpa:.4f} ms")
+        check_faults(faults, bound, f"flash_attention bf16 {label}")
+        check(err <= bound, f"flash_attention bf16 {label}: {err} > {bound}")
+        del q, k, v, got, q_rows, want
+        torch.cuda.empty_cache()
+
+    # kernel A where image 1 starts 2^31 bytes in
+    n, c, hh, ww = GN_OFFSET_SHAPE
+    x = torch.empty(GN_OFFSET_SHAPE, dtype=torch.bfloat16, device="cuda")
+    for i in range(n):
+        x[i] = (torch.randn(c, hh, ww, generator=g, device="cuda")
+                * (0.5 + 2 * torch.rand(c, 1, 1, generator=g, device="cuda"))
+                + 2 * torch.randn(c, 1, 1, generator=g, device="cuda"))
+    w = (1 + 0.3 * torch.randn(c, generator=g, device="cuda")).bfloat16()
+    bias = (0.3 * torch.randn(c, generator=g, device="cuda")).bfloat16()
+    y = K.group_norm_silu(x, w, bias, eps=1e-6, apply_silu=True)
+    cpg = c // 32
+    errs, faults = {}, {}
+    for img, grp in ((0, 0), (1, 0), (1, 31)):
+        ch = slice(grp * cpg, (grp + 1) * cpg)
+        want = K.group_norm_silu_reference(x[img:img + 1, ch], w[ch], bias[ch],
+                                           num_groups=1, eps=1e-6)
+        errs[img, grp] = max_err(y[img:img + 1, ch], want)
+        if img == 1:
+            # a 32-bit byte offset would have read image 0's slab
+            faults[f"slab ({img}, {grp}) read from image 0"] = max_err(
+                K.group_norm_silu_reference(x[0:1, ch], w[ch], bias[ch],
+                                            num_groups=1, eps=1e-6), want)
+        if (img, grp) == (1, 31):
+            faults["variance x1.05"] = max_err(K.group_norm_silu_reference(
+                x[img:img + 1, ch], w[ch] / 1.05 ** 0.5, bias[ch],
+                num_groups=1, eps=1e-6), want)
+    ms = cuda_ms(lambda: K.group_norm_silu(x, w, bias, eps=1e-6), 3, warmup=1)
+    least, by = bound_ms(*group_norm_work(GN_OFFSET_SHAPE), PEAK_FP32)
+    plan = K.group_norm_plan(n, c, hh, ww, 32, 2)
+    bound = GN_BOUNDS[torch.bfloat16]
+    print(f"[kernel] group_norm_silu bf16 {GN_OFFSET_SHAPE} (2^31 elements; "
+          f"image 1 at byte 2^31), slabs (image, group) against the twin on "
+          f"each: " + ", ".join(f"{key} {e:.3e}" for key, e in errs.items())
+          + f" <= {bound:g}; kernel {ms:.4f} ms, bound {least:.4f} ms ({by}); "
+          f"plan {plan.path}, k {plan.k}, {plan.share_bytes} B share")
+    check_faults(faults, bound, "group_norm_silu bf16 2^31 elements")
+    check(max(errs.values()) <= bound,
+          f"group_norm_silu at {GN_OFFSET_SHAPE}: {errs} > {bound}")
+    del x, y
+    torch.cuda.empty_cache()
 
 
 def sam_bound(dtype, want_max: float, rel: float) -> float:
@@ -1128,6 +1271,7 @@ def phase_tiny_parity():
     for case, spec in TINY_DENOISE_CASES.items():
         tiny_mode_parity(case, *spec, TINY_DENOISE_STEPS,
                          TINY_DENOISE_IMAGE_LEVELS)
+    phase_tiny_hires_parity()
 
 
 def tiny_parity(kind: str, fused: bool):
@@ -1228,6 +1372,108 @@ def tiny_mode_parity(case: str, family: str, mode: str, kw: dict, steps: int,
           f"flash_attention launches")
     check(lat_err <= TINY_LATENT_TOL, f"tiny {case}: latents differ by {lat_err}")
     check(img_err <= levels, f"tiny {case}: images differ by {img_err}")
+
+
+def palette_sketch(size: int, seed: int) -> np.ndarray:
+    """A sketch on white drawn with numpy: rectangles and discs of four
+    random colours."""
+    rng = np.random.default_rng(seed)
+    img = np.full((size, size, 3), 255, np.uint8)
+    yy, xx = np.mgrid[0:size, 0:size]
+    for i, colour in enumerate(rng.integers(0, 200, (4, 3), dtype=np.uint8)):
+        y0, x0 = rng.integers(0, 3 * size // 4, 2)
+        r = size // 8
+        if i % 2:
+            img[(yy - y0 - r) ** 2 + (xx - x0 - r) ** 2 < r * r] = colour
+        else:
+            img[y0:y0 + 2 * r, x0:x0 + 3 * r] = colour
+    return img
+
+
+def tiny_hires_cases() -> dict:
+    """The high-resolution surface at tiny widths, each a function of a
+    bundle with the "tile" ControlNet -> uint8 images: tile refinement
+    (64^2 -> 128^2, 2 samples) through ``EditPipeline.tile_refine`` and
+    through ``process(enable_tile=True)``, img2img (strength 0.6, 5 steps:
+    3 run), a sketch with its scale map, and txt2img and an edit whose VAE
+    encodes and decodes 64^2 images in 2 x 2 tiles (``vae_oneshot_max_px``
+    lowered to 32). The noises are drawn here, so both devices get the
+    same."""
+    from editanything_tpu_torch.pipelines.edit import EditPipeline
+    from editanything_tpu_torch.pipelines.editor import EditAnythingEditor
+    from editanything_tpu_torch.pipelines.generate import GenerationPipeline
+    from editanything_tpu_torch.pipelines.img2img import Img2ImgPipeline
+    from editanything_tpu_torch.pipelines.sketch import SketchPipeline
+    rng = np.random.default_rng(9)
+    noise = {shape: rng.standard_normal(shape).astype(np.float32)
+             for shape in ((2, 8, 8, 4), (2, 16, 16, 4))}
+    image, cond = _checker_image(64, 64), _checker_image(64, 64)[::-1]
+    mask = _square_mask(64, 16, 48)
+    common = dict(prompt="a red cat", num_samples=2, image_resolution=64,
+                  num_steps=4, guidance_scale=9.0, noise=noise[2, 8, 8, 4])
+
+    def tiled(pipe):
+        pipe.vae_oneshot_max_px, pipe.vae_tile_latent = 32, 4
+        pipe.vae_tile_overlap = 2
+        return pipe
+
+    def process(b):
+        tiles, results, _, _ = EditAnythingEditor(b).process(
+            image=image, mask=mask, condition_image=cond, prompt="a red cat",
+            num_samples=2, image_resolution=64, ddim_steps=4, scale=9.0,
+            alignment_ratio=0.75, enable_tile=True,
+            refine_image_resolution=128, noise=noise[2, 8, 8, 4],
+            tile_noise=noise[2, 16, 16, 4])
+        check(len(tiles) == 2 and tiles[0].shape == (128, 128, 3),
+              "process(enable_tile=True) returned no 128^2 tile results")
+        return np.concatenate([np.stack(tiles).ravel(),
+                               np.stack(results).ravel()])
+    return {
+        "tile_refine 64^2 -> 128^2": lambda b: np.stack(
+            EditPipeline(b).tile_refine(
+                np.stack([image, cond]), mask, "sharp detail", num_steps=4,
+                refine_image_resolution=128, guidance_scale=7.0,
+                alignment_ratio=0.9, noise=noise[2, 16, 16, 4])),
+        "process(enable_tile=True)": process,
+        "img2img": lambda b: Img2ImgPipeline(b)(
+            image=image, condition_image=cond, strength=0.6,
+            **dict(common, num_steps=5)),
+        "sketch": lambda b: SketchPipeline(b)(
+            sketch=palette_sketch(64, 3), **common),
+        "txt2img, tiled VAE": lambda b: tiled(GenerationPipeline(b))(
+            condition_image=cond, **common),
+        "edit, tiled VAE": lambda b: tiled(EditPipeline(b))(
+            image=image, mask=mask, condition_image=cond,
+            alignment_ratio=0.75, **common),
+    }
+
+
+def phase_tiny_hires_parity():
+    """Each of ``tiny_hires_cases`` in fp32 on the GPU (kernels) against
+    the CPU (plain twins), the same weights and noises; images within
+    TINY_IMAGE_LEVELS, and kernels B and A launched on the GPU."""
+    from editanything_tpu_torch.core import flash_attention as FA
+    from editanything_tpu_torch.core import kernels as K
+    from editanything_tpu_torch.pipelines.bundle import random_bundle
+    for case, fn in tiny_hires_cases().items():
+        outs = {}
+        for device in ("cpu", "cuda"):
+            b = random_bundle(tiny=True, device="cpu",
+                              controlnet_names=("sam", "inpaint", "tile"),
+                              generator=torch.Generator().manual_seed(1))
+            before = FA.flash_attention.launches, K.group_norm_silu.launches
+            outs[device] = fn(b.to(device))
+            launched = (FA.flash_attention.launches - before[0],
+                        K.group_norm_silu.launches - before[1])
+        err = int(np.abs(outs["cuda"].astype(np.int32)
+                         - outs["cpu"].astype(np.int32)).max())
+        print(f"[parity] tiny {case}, fp32, CUDA (kernels) vs CPU (plain "
+              f"twins): output {outs['cuda'].shape}, images max diff {err} <= "
+              f"{TINY_IMAGE_LEVELS} levels; flash_attention {launched[0]}, "
+              f"group_norm_silu {launched[1]} launches")
+        check(outs["cuda"].dtype == np.uint8, f"tiny {case}: not uint8")
+        check(err <= TINY_IMAGE_LEVELS, f"tiny {case}: images differ by {err}")
+        check(min(launched) > 0, f"tiny {case}: launches {launched}")
 
 
 def phase_sam_parity():
@@ -1393,13 +1639,16 @@ def phase_full_width():
     from editanything_tpu_torch.pipelines.generate import GenerationPipeline
 
     t0 = time.perf_counter()
+    # "tile" (phase 4d) is drawn last: the other weights are as without it
     bundle = random_bundle(tiny=False, dtype=torch.bfloat16, device="cuda",
-                           generator=torch.Generator("cuda").manual_seed(0))
+                           generator=torch.Generator("cuda").manual_seed(0),
+                           controlnet_names=("sam", "inpaint", "tile"))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for m in [bundle.unet, bundle.vae, bundle.text]
                    + [net for _, net in bundle.controlnets.values()]
                    for p in m.parameters())
-    print(f"[full] SD1.5 UNet + 2 ControlNets + VAE + CLIP-L, bf16, random "
+    print(f"[full] SD1.5 UNet + 3 ControlNets (sam, inpaint, tile) + VAE + "
+          f"CLIP-L, bf16, random "
           f"weights (seed 0): {n_params / 1e9:.3f} B parameters, "
           f"built in {time.perf_counter() - t0:.1f} s")
     denoise_step_check(bundle)
@@ -1725,6 +1974,196 @@ def phase_reference_and_samplers(bundle) -> dict:
     return launches
 
 
+def expected_pass_launches(cfg, steps: int, vae_calls: int) -> int:
+    """Kernel B's launches in a one-ControlNet denoise (tile refinement,
+    img2img, txt2img, sketch): 2 per transformer block of the UNet and the
+    ControlNet a step, plus the VAE's mid attention once per encode and
+    decode, each tile of a tiled one counted."""
+    enc, dec, cn = transformer_blocks(cfg)
+    return steps * 2 * (enc + dec + cn) + vae_calls
+
+
+@contextlib.contextmanager
+def split_timers(pipe):
+    """Times each call of `pipe`'s tile pass, VAE encode, decode and
+    denoise (``build_denoiser``'s loops in pipelines/edit.py), each
+    synchronised, into a list of (in the tile pass?, name, seconds); the
+    tile pass also records its own peak memory (GiB)."""
+    from editanything_tpu_torch.pipelines import edit as E
+    log, state = [], {"tile": False}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            tile = name == "tile pass"
+            if tile:
+                state["tile"] = True
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            out, seconds = _synced(fn, *args, **kwargs)
+            if tile:
+                state["tile"] = False
+                log.append((True, "tile pass peak GiB",
+                            torch.cuda.max_memory_allocated() / 2**30))
+            log.append((state["tile"] or tile, name, seconds))
+            return out
+        return run
+    build = E.build_denoiser
+    E.build_denoiser = lambda *a, **kw: timed("denoise", build(*a, **kw))
+    pipe.tile_refine = timed("tile pass", pipe.tile_refine)
+    pipe._encode = timed("encode", pipe._encode)
+    pipe.decode = timed("decode", pipe.decode)
+    try:
+        yield log
+    finally:
+        E.build_denoiser = build
+        for name in ("tile_refine", "_encode", "decode"):
+            delattr(pipe, name)
+
+
+def phase_high_resolution(bundle) -> dict:
+    """Phase 4d: the SD1.5 bundle (with its "tile" ControlNet) at published
+    widths through the high-resolution entry points: the one-shot hint
+    stack at 4096^2 (peak memory); ``process(enable_tile=True)`` at the
+    UI's defaults (512^2, 2 samples, 30 UniPC steps, CFG 9, refine to
+    1024^2 at alignment 0.95), a warm-up and a timed request split into the
+    edit and the tile pass's encode, denoise and decode; one request
+    refined to 2304^2 (1 sample, 2 steps), above the one-shot bound, so its
+    encode and decode run in 3 x 3 tiles; one img2img (strength 0.75, 22
+    of 30 steps, the SAM ControlNet) and one sketch (its scale map) at
+    512^2. Each request's kernel B launches must be what its path
+    predicts. Returns each case's launches per request."""
+    from editanything_tpu_torch.pipelines.editor import EditAnythingEditor
+    from editanything_tpu_torch.pipelines.img2img import Img2ImgPipeline
+    from editanything_tpu_torch.pipelines.sketch import SketchPipeline
+    cfg = bundle.unet_cfg
+    launches = {}
+
+    # the tiled hint stack is ported only if the one-shot one cannot take
+    # 4096^2 (2 samples) on this card
+    net = bundle.controlnets["tile"][1]
+    g = torch.Generator("cuda").manual_seed(40)
+    hint_in = torch.rand(HINT_STACK_SHAPE, generator=g,
+                         device="cuda").to(bundle.dtype)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        emb, seconds = _synced(net.hint_embedding, hint_in)
+    print(f"[hires] one-shot hint stack {HINT_STACK_SHAPE} {bundle.dtype} -> "
+          f"{tuple(emb.shape)}: {seconds:.4f} s; peak memory above its input "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated)")
+    n, _, hh, ww = HINT_STACK_SHAPE
+    want = (n, cfg.block_out_channels[0], hh // 8, ww // 8)
+    check(tuple(emb.shape) == want and bool(torch.isfinite(emb).all()),
+          f"hint stack returned {tuple(emb.shape)}")
+    del hint_in, emb
+    torch.cuda.empty_cache()
+
+    editor = EditAnythingEditor(bundle)
+    check(editor.tile_control == "tile", "the editor found no tile ControlNet")
+    pipe = editor.pipe
+    side, refine, big = HIRES_SIDES
+    request = dict(image=_checker_image(side, side),
+                   mask=_square_mask(side, side // 4, 3 * side // 4),
+                   prompt="a red cat sitting on a sofa", a_prompt="best quality",
+                   n_prompt="blurry, low quality",
+                   condition_image=_id_map(side, side, 3), num_samples=2,
+                   image_resolution=side, ddim_steps=30, scale=9.0,
+                   control_scale=0.5, enable_tile=True,
+                   refine_image_resolution=refine, refine_alignment_ratio=0.95)
+
+    def tile_request(what, kw, seed, tile_side, samples, steps, vae_tiles):
+        counters = launch_counters()
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        with split_timers(pipe) as log:
+            (tiles, results, _, _), seconds = _synced(
+                editor.process, **dict(request, **kw), seed=seed,
+                generator=torch.Generator("cuda").manual_seed(seed))
+        counts = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tiles, results = np.stack(tiles), np.stack(results)
+        parts = {}
+        for in_tile, name, value in log:
+            key = ("tile " if in_tile else "edit ") + name
+            parts[key] = parts.get(key, 0.0) + value
+        expected = (expected_flash_launches(cfg, steps)
+                    + expected_pass_launches(cfg, steps, 2 * vae_tiles))
+        rest = parts["tile tile pass"] - sum(
+            parts[f"tile {name}"] for name in ("encode", "denoise", "decode"))
+        print(f"[hires] {what}: {seconds:.3f} s, of which the edit "
+              f"{seconds - parts['tile tile pass']:.3f} s (encode "
+              f"{parts['edit encode']:.3f}, denoise {parts['edit denoise']:.3f}, "
+              f"decode {parts['edit decode']:.3f}) and the tile pass "
+              f"{parts['tile tile pass']:.3f} s (encode {parts['tile encode']:.3f}"
+              f", denoise {parts['tile denoise']:.3f}, decode "
+              f"{parts['tile decode']:.3f}, the rest {rest:.3f}: the upscale, "
+              f"prompts, conditions); peak memory {peak:.2f} GiB, of the tile pass "
+              f"{parts['tile tile pass peak GiB']:.2f} GiB; launches "
+              f"flash_attention {counts['flash_attention']} (expected "
+              f"{expected}), group_norm_silu {counts['group_norm_silu']}; "
+              f"{editor.last_nonfinite} non-finite values; outputs "
+              f"{tiles.shape} {tiles.dtype} and {results.shape}")
+        check(tiles.shape == (samples, tile_side, tile_side, 3)
+              and tiles.dtype == np.uint8,
+              f"{what}: tile results {tiles.shape} {tiles.dtype}")
+        check(results.shape == (samples, side, side, 3),
+              f"{what}: results {results.shape}")
+        check(editor.last_nonfinite == 0,
+              f"{what}: {editor.last_nonfinite} non-finite values")
+        check(counts["flash_attention"] == expected,
+              f"{what}: {counts['flash_attention']} kernel B launches, "
+              f"expected {expected}")
+        check(counts["group_norm_silu"] > 0, f"{what}: kernel A not launched")
+        launches[what] = counts
+        return seconds
+
+    what = (f"tile refinement {refine}^2, process, {side}^2, 2 samples, 30 "
+            f"steps, CFG 9")
+    check(pipe._decode_tile_spec(refine, refine) is None,
+          f"{refine}^2 decodes tiled")
+    print(f"[hires] warm-up request: "
+          f"{tile_request(what, {}, 600, refine, 2, 30, 1):.3f} s")
+    tile_request(what, {}, 601, refine, 2, 30, 1)
+    what = f"tile refinement {big}^2, process, 1 sample, 2 steps"
+    check(pipe._decode_tile_spec(big, big) == (128, 32),
+          f"{big}^2 does not decode tiled")
+    tile_request(what, dict(num_samples=1, ddim_steps=2,
+                            refine_image_resolution=big), 602, big, 1, 2,
+                 HIRES_BIG_VAE_TILES)
+    del editor, pipe
+    torch.cuda.empty_cache()
+
+    img2img = Img2ImgPipeline(bundle, controlnet="sam")
+    what = "img2img, strength 0.75 (22 of 30 steps), SAM ControlNet"
+    counts = timed_request(
+        "hires", f"{what}, {side}^2, 2 samples, CFG 9", img2img, img2img,
+        image=_checker_image(side, side), prompt="a red cat sitting on a sofa",
+        strength=0.75, condition_image=_id_map(side, side, 3),
+        negative_prompt="blurry, low quality", num_samples=2,
+        image_resolution=side, num_steps=30, guidance_scale=9.0,
+        control_scale=0.5, generator=torch.Generator("cuda").manual_seed(610))[1]
+    check(counts["flash_attention"] == expected_pass_launches(cfg, 22, 2),
+          f"{what}: {counts['flash_attention']} kernel B launches")
+    launches[what] = counts
+
+    sketch = SketchPipeline(bundle, controlnet="sam")
+    what = "sketch, scale map, 30 steps"
+    counts = timed_request(
+        "hires", f"{what}, {side}^2, 2 samples, CFG 9", sketch.gen, sketch,
+        sketch=palette_sketch(side, 4), prompt="a garden with a pond",
+        negative_prompt="blurry, low quality", num_samples=2,
+        image_resolution=side, num_steps=30, guidance_scale=9.0,
+        generator=torch.Generator("cuda").manual_seed(620))[1]
+    check(counts["flash_attention"] == expected_pass_launches(cfg, 30, 1),
+          f"{what}: {counts['flash_attention']} kernel B launches")
+    launches[what] = counts
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _synced(fn, *args, **kwargs):
     """(result, seconds) of fn on the host clock, the device synchronised."""
     torch.cuda.synchronize()
@@ -1873,6 +2312,7 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     headline = phase_kernels()
+    phase_hires_kernels()
     phase_sam_kernels(headline)
     phase_resnet_kernel(headline)
     phase_tiny_parity()
@@ -1880,6 +2320,7 @@ def main() -> int:
     bundle = phase_full_width()
     mode_launches = phase_full_width_modes()
     mode_launches.update(phase_reference_and_samplers(bundle))
+    mode_launches.update(phase_high_resolution(bundle))
     launches = phase_main_path(bundle)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "editanything_tpu"))

@@ -2,14 +2,20 @@
 
 Counterpart of ``editanything_tpu/models/vae.py``: ``encode`` (to a
 ``GaussianPosterior``), ``decode``, ``encode_to_latents`` (posterior mode)
-and ``decode_from_latents``, one-shot. The tiled encode/decode for images
-above 2048^2 is not ported yet (ROADMAP Queue 1 item 5).
+and ``decode_from_latents``, one-shot or tiled: ``decode_tiled`` and
+``encode_tiled`` (:154-295) run the same Decoder/Encoder over overlapping
+tiles, each tile with its own GroupNorm statistics, and add the tiles,
+weighted by a separable linear ramp over the overlaps, into an fp32 canvas
+that is divided by the summed weights at the end. On CUDA every tile runs
+kernel B (the mid-block attention) and kernel A (every GroupNorm) as the
+one-shot model does.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -130,9 +136,110 @@ class AutoencoderKL(nn.Module):
         """(B, 4, h, w) unscaled latents -> (B, 3, 8h, 8w) in [-1, 1]."""
         return self.decoder(self.post_quant_conv(z))
 
-    def encode_to_latents(self, x):
-        """Image -> scaled latents (posterior mode), fp32."""
-        return self.encode(x).mode() * self.cfg.scaling_factor
+    def encode_to_latents(self, x, *, tile=None, overlap: int = 256):
+        """Image -> scaled latents (posterior mode), fp32; `tile` (image px)
+        switches to ``encode_tiled``."""
+        post = (self.encode(x) if tile is None
+                else encode_tiled(self, x, tile=tile, overlap=overlap))
+        return post.mode() * self.cfg.scaling_factor
 
-    def decode_from_latents(self, z):
-        return self.decode(z / self.cfg.scaling_factor)
+    def decode_from_latents(self, z, *, tile=None, overlap: int = 32):
+        """Scaled latents -> image; `tile` (latent px) switches to
+        ``decode_tiled``."""
+        z = z / self.cfg.scaling_factor
+        if tile is None:
+            return self.decode(z)
+        return decode_tiled(self, z, tile=tile, overlap=overlap)
+
+
+# ---- tiled encode/decode ---------------------------------------------------
+
+def _tile_starts(size: int, tile: int, stride: int):
+    """Start offsets covering [0, size) with full-size tiles; the last tile
+    is clamped to end exactly at `size`."""
+    if size <= tile:
+        return [0]
+    starts = list(range(0, size - tile, stride))
+    starts.append(size - tile)
+    return starts
+
+
+def _ramp(tile_px: int, ov_px: int) -> np.ndarray:
+    """1-D blend profile: a linear ramp over the overlap at both ends, 1 in
+    the interior (single-cover borders divide out exactly)."""
+    r = np.ones((tile_px,), np.float32)
+    if ov_px > 0:
+        ramp = (np.arange(ov_px, dtype=np.float32) + 1.0) / (ov_px + 1.0)
+        r[:ov_px] = ramp
+        r[tile_px - ov_px:] = ramp[::-1]
+    return r
+
+
+def _blend_weight(th_px: int, tw_px: int, ov_h_px: int, ov_w_px: int):
+    """(th, tw) separable pyramid, per dimension (a dimension that fits one
+    tile has no ramp)."""
+    return torch.from_numpy(_ramp(th_px, ov_h_px)[:, None]
+                            * _ramp(tw_px, ov_w_px)[None, :])
+
+
+def _tile_plan(h: int, w: int, tile: int, overlap: int):
+    """(th, tw, ov_h, ov_w, [(y, x)]): a dimension that fits the tile gets
+    one clamped tile and no overlap; the other may still be tiled."""
+    th, tw = min(tile, h), min(tile, w)
+    ov_h = overlap if h > th else 0
+    ov_w = overlap if w > tw else 0
+    pos = [(y, x) for y in _tile_starts(h, th, th - ov_h)
+           for x in _tile_starts(w, tw, tw - ov_w)]
+    return th, tw, ov_h, ov_w, pos
+
+
+def _scale_factor(cfg: VAEConfig) -> int:
+    return 2 ** (len(cfg.block_out_channels) - 1)
+
+
+def decode_tiled(vae: AutoencoderKL, z, tile: int = 128, overlap: int = 32):
+    """Tiled ``decode``: (B, zc, h, w) unscaled latents -> (B, 3, f*h, f*w).
+    `tile`/`overlap` in latent pixels; one-shot where one tile covers z."""
+    b, _, h, w = z.shape
+    if h <= tile and w <= tile:
+        return vae.decode(z)
+    f = _scale_factor(vae.cfg)
+    th, tw, ov_h, ov_w, pos = _tile_plan(h, w, tile, overlap)
+    wt = _blend_weight(th * f, tw * f, ov_h * f, ov_w * f).to(z.device)
+    canvas = torch.zeros(b, vae.cfg.out_channels, h * f, w * f,
+                         dtype=torch.float32, device=z.device)
+    wsum = torch.zeros(h * f, w * f, dtype=torch.float32, device=z.device)
+    for y, x in pos:
+        img = vae.decode(z[:, :, y:y + th, x:x + tw])
+        oy, ox = y * f, x * f
+        canvas[:, :, oy:oy + th * f, ox:ox + tw * f] += img.float() * wt
+        wsum[oy:oy + th * f, ox:ox + tw * f] += wt
+    return (canvas / wsum).to(img.dtype)
+
+
+def encode_tiled(vae: AutoencoderKL, x, tile: int = 1024,
+                 overlap: int = 256) -> GaussianPosterior:
+    """Tiled ``encode``; `tile`/`overlap` in image pixels, multiples of the
+    scale factor f, as the image's sides. The posterior's mean and log
+    variance blend in latent space with the ramps of ``decode_tiled``."""
+    b, _, h, w = x.shape
+    if h <= tile and w <= tile:
+        return vae.encode(x)
+    f = _scale_factor(vae.cfg)
+    if tile % f or overlap % f or h % f or w % f:
+        raise ValueError(f"tile/overlap/image dims must be multiples of {f}")
+    th, tw, ov_h, ov_w, pos = _tile_plan(h, w, tile, overlap)
+    wt = _blend_weight(th // f, tw // f, ov_h // f, ov_w // f).to(x.device)
+    lh, lw, zc = h // f, w // f, vae.cfg.latent_channels
+    mean = torch.zeros(b, zc, lh, lw, dtype=torch.float32, device=x.device)
+    logvar = torch.zeros_like(mean)
+    wsum = torch.zeros(lh, lw, dtype=torch.float32, device=x.device)
+    for y, xx in pos:
+        post = vae.encode(x[:, :, y:y + th, xx:xx + tw])
+        oy, ox = y // f, xx // f
+        win = (slice(None), slice(None), slice(oy, oy + th // f),
+               slice(ox, ox + tw // f))
+        mean[win] += post.mean * wt
+        logvar[win] += post.logvar * wt
+        wsum[win[2:]] += wt
+    return GaussianPosterior(mean / wsum, logvar / wsum)

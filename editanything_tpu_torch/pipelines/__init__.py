@@ -1,1 +1,2 @@
-"""The dual-ControlNet inpaint edit and its model bundle."""
+"""The pipelines over a model bundle: the dual-ControlNet inpaint edit (and
+its tile refinement), txt2img, img2img, sketch-to-image and the editor."""

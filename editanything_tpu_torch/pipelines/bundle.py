@@ -144,9 +144,10 @@ def _target(device) -> torch.device:
 
 def random_bundle(*, tiny: bool = True, dtype=torch.float32, device="cuda",
                   generator: Optional[torch.Generator] = None,
-                  family: str = "sd15") -> ModelBundle:
-    """Randomly initialised bundle with ControlNets "sam" and "inpaint", for
-    smoke runs: tiny=True at test widths (SD1.5's those of the JAX package's
+                  family: str = "sd15",
+                  controlnet_names=("sam", "inpaint")) -> ModelBundle:
+    """Randomly initialised bundle with the named ControlNets (default "sam"
+    and "inpaint"; "tile" for tile refinement), for smoke runs: tiny=True at test widths (SD1.5's those of the JAX package's
     ``random_bundle``, SD2.1's those of its tests/test_sd21.py), tiny=False
     at the published widths, with the tiny test tokenizer. `family`: "sd15",
     "sd15_inpaint" (the 9-channel inpainting UNet) or "sd21" (UNet, OpenCLIP
@@ -154,7 +155,9 @@ def random_bundle(*, tiny: bool = True, dtype=torch.float32, device="cuda",
     the GPU unless `device` says otherwise (raises when there is none).
     `generator` lives on `device` (default: seed 0 there). Unlike a fresh
     ControlNet, whose zero convs start at zero, every conv is drawn, so the
-    ControlNet residuals reach the UNet."""
+    ControlNet residuals reach the UNet. The ControlNets are drawn in the
+    order named, after the UNet, VAE and text tower, so names appended to
+    the default leave the weights of the first ones as they were."""
     device = _target(device)
     if generator is None:
         generator = torch.Generator(device).manual_seed(0)
@@ -164,7 +167,7 @@ def random_bundle(*, tiny: bool = True, dtype=torch.float32, device="cuda",
     vae = init_weights_(_empty(AutoencoderKL, vcfg, device, dtype), generator)
     text = init_weights_(_empty(CLIPTextModel, tcfg, device, dtype), generator)
     cns = {}
-    for name in ("sam", "inpaint"):
+    for name in controlnet_names:
         cn_cfg = C.ControlNetConfig(unet=cn_ucfg)
         cns[name] = (cn_cfg, init_weights_(
             _empty(ControlNetModel, cn_cfg, device, dtype), generator))

@@ -13,13 +13,14 @@ latents (``noise``, and for "mix" the noise that re-noises the original
 before the loop, ``mix_noise``, both in the JAX package's (B, h, w, 4)
 layout) or ``generator``; the per-step noises of "mix" and of DDIM's eta
 (``step_noise``, ``eta_noise``, (steps, B, 4, h, w)) or generators seeded
-with seed + 1 and seed + 2. Not ported yet: tile refinement (ROADMAP Queue
-1 item 5).
+with seed + 1 and seed + 2. ``tile_refine`` (:282-350) is the second pass
+at the refine resolution, its initial latents handed in or drawn the same
+way; above ``vae_oneshot_max_px`` its encode and decode run tiled.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -73,12 +74,13 @@ class EditPipeline(GenerationPipeline):
         return img, self._norm_mask(mask, h, w), h, w
 
     def _latent_inputs(self, img_uint8, mask_hw, h, w, num_samples):
-        """VAE-encode the masked image; the mask at latent resolution."""
+        """VAE-encode the masked image (H, W, 3), or images (S, H, W, 3);
+        the mask at latent resolution, both over `num_samples`."""
         b = self.bundle
         img01 = img_uint8.astype(np.float32) / 255.0
         masked = img01 * (mask_hw[..., None] < 0.5) * 2.0 - 1.0
-        x = torch.from_numpy(masked).permute(2, 0, 1)[None]
-        lat = self._encode(x.to(b.device, b.dtype)).float()
+        x = torch.from_numpy(masked.reshape((-1,) + masked.shape[-3:]))
+        lat = self._encode(x.permute(0, 3, 1, 2).to(b.device, b.dtype)).float()
         lat = lat.expand(num_samples, -1, -1, -1)
         mlat = resize_nearest(torch.from_numpy(mask_hw)[None, None],
                               (h // 8, w // 8))
@@ -248,3 +250,55 @@ class EditPipeline(GenerationPipeline):
         if return_latents:
             return out.float().permute(0, 2, 3, 1).cpu().numpy()
         return self.decode(out)
+
+    # -- tile refinement ---------------------------------------------------
+
+    @torch.inference_mode()
+    def tile_refine(self, images_uint8, mask: np.ndarray, prompt: str, *,
+                    tile_control: str = "tile", negative_prompt: str = "",
+                    refine_image_resolution: int = 1024, num_steps: int = 30,
+                    guidance_scale: float = 9.0,
+                    alignment_ratio: float = 0.95, sampler: str = "unipc",
+                    seed: int = 0, noise=None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> List[np.ndarray]:
+        """Second diffusion pass at `refine_image_resolution`
+        (editany_lora.py:886-936), all samples as one batch: each image
+        upscaled (``resize_image``: LANCZOS) is its own tile-ControlNet
+        condition in [0, 1] at scale 1.0, and its masked pixels' latents
+        blend in while the step is below `alignment_ratio`. Returns one
+        (H, W, 3) uint8 image per sample. The initial latents are `noise`
+        ((S, H/8, W/8, 4), the JAX package's layout) when given, else drawn
+        from `generator` (default: seeded with `seed`)."""
+        b = self.bundle
+        device = b.device
+        imgs = np.stack([resize_image(HWC3(np.asarray(im).astype(np.uint8)),
+                                      refine_image_resolution)
+                         for im in images_uint8])
+        s, h, w = imgs.shape[:3]
+        m = self._norm_mask(mask, h, w)
+        dcfg = DenoiseConfig(
+            unet=b.unet_cfg, controlnets=b.controlnet_cfgs((tile_control,)),
+            num_steps=num_steps, sampler=sampler, inpaint_mode="blend",
+            alignment_ratio=alignment_ratio)
+        denoise = build_denoiser(
+            dcfg, b.noise_schedule(),
+            make_timesteps(num_steps, spacing=dcfg.timestep_spacing))
+        context = self.embed_prompts(prompt, negative_prompt, s)
+        cond = torch.from_numpy(imgs.astype(np.float32) / 255.0)
+        cond = cond.permute(0, 3, 1, 2).to(device, b.dtype)
+        image_latents, mask_latents = self._latent_inputs(imgs, m, h, w, s)
+        latents = self.initial_latents(image_latents.shape, noise=noise,
+                                       generator=generator, seed=seed)
+        inputs = {
+            "controlnet_conds": [cond],
+            "controlnet_scales": [1.0],
+            "guidance_scale": float(guidance_scale),
+            "mask": mask_latents.float(),
+            "image_latents": image_latents,
+            "noise": latents,
+        }
+        params = {"unet": b.unet,
+                  "controlnets": b.controlnet_modules((tile_control,))}
+        out = self.decode(denoise(params, latents.to(b.dtype), context, inputs))
+        return [out[i] for i in range(s)]

@@ -5,8 +5,8 @@ Counterpart of ``editanything_tpu/pipelines/editor.py`` for the main path:
 ``process`` builds the SAM ID condition map when none is given
 (editor.py:358-360) and runs the edit; ``process_image_click`` is the
 click-to-segment entry point. Images in and out are numpy HWC uint8. The
-SAM resize is torch (``resize_uint8_bilinear``), so this path needs no PIL
-as long as ``resize_image`` has nothing to resize.
+SAM resize is torch (``resize_uint8_bilinear``) and ``resize_image`` is
+numpy, so no path needs PIL.
 
 ``process`` also takes every sampler, DDIM's ``eta``, the per-pixel scale
 map of the SAM control (``use_scale_map``, derived from the mask unless
@@ -15,11 +15,13 @@ map of the SAM control (``use_scale_map``, derived from the mask unless
 (``ref_image``, ``ref_mask``, ``ref_prompt``, ``reference_attn``,
 ``reference_adain``, ``attention_auto_weight``, ``gn_auto_weight``,
 ``style_fidelity``, ``ref_scale``, ``ref_sam_scale``,
-``ref_inpaint_scale``) and, beyond the JAX editor's arguments,
+``ref_inpaint_scale``), tile refinement (``enable_tile``,
+``refine_image_resolution``, ``refine_alignment_ratio``, through the
+bundle's "tile" ControlNet) and, beyond the JAX editor's arguments,
 ``encoder_interval``. Not ported yet; set to anything but its default, each
-raises ``NotImplementedError`` naming its ROADMAP item: tile refinement
-(Queue 1 item 5), auto prompt, condition-model swap, the ref image's
-caption and textual inversion, and ``EA_SAVE_INPUTS`` capture (item 7).
+raises ``NotImplementedError`` naming its ROADMAP item: auto prompt,
+condition-model swap, the ref image's caption and textual inversion, and
+``EA_SAVE_INPUTS`` capture (Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -44,9 +46,6 @@ from editanything_tpu_torch.utils.image import (HWC3, resize_image,
 _NOT_PORTED = {
     "enable_auto_prompt": (False, "Queue 1 item 7 (captioner)"),
     "condition_model": (None, "Queue 1 item 7 (ControlNet hot-swap)"),
-    "enable_tile": (False, "Queue 1 item 5 (tile refinement)"),
-    "refine_image_resolution": (1024, "Queue 1 item 5 (tile refinement)"),
-    "refine_alignment_ratio": (0.95, "Queue 1 item 5 (tile refinement)"),
     "ref_auto_prompt": (False, "Queue 1 item 7 (captioner)"),
     "ref_textinv": (False, "Queue 1 item 7 (textual inversion)"),
     "ref_textinv_path": (None, "Queue 1 item 7 (textual inversion)"),
@@ -76,7 +75,7 @@ class EditAnythingEditor:
     def __init__(self, bundle: ModelBundle, *,
                  sam: Optional[Tuple[SAM.SAMConfig, SAM.Sam]] = None,
                  amg_config: Optional[AMGConfig] = None,
-                 extra_inpaint: bool = True):
+                 extra_inpaint: bool = True, tile_control: str = "tile"):
         self.bundle = bundle
         controls = (("sam", "inpaint") if extra_inpaint
                     and "inpaint" in bundle.controlnets else ("sam",))
@@ -84,6 +83,9 @@ class EditAnythingEditor:
                                  inpaint_mode="blend")
         self.mix_pipe = EditPipeline(bundle, controls=controls,
                                      inpaint_mode="mix")
+        # the ControlNet of tile refinement; None: the bundle has none
+        self.tile_control = (tile_control if tile_control in bundle.controlnets
+                             else None)
         self.sam = sam
         self.amg_cfg = amg_config or AMGConfig()
         if sam is not None:
@@ -150,6 +152,9 @@ class EditAnythingEditor:
                 scale_map: Optional[np.ndarray] = None,
                 alpha_weight: float = 0.5, use_alpha_mixing: bool = False,
                 alignment_ratio: Optional[float] = None,
+                enable_tile: bool = False,
+                refine_image_resolution: int = 1024,
+                refine_alignment_ratio: float = 0.95,
                 encoder_interval: int = 1,
                 ref_image: Optional[np.ndarray] = None,
                 ref_mask: Optional[np.ndarray] = None,
@@ -162,15 +167,21 @@ class EditAnythingEditor:
                 ref_inpaint_scale: Optional[float] = None,
                 generator: Optional[torch.Generator] = None, noise=None,
                 mix_noise=None, step_noise=None, eta_noise=None,
-                **not_ported):
+                tile_noise=None, **not_ported):
         """Returns (results_tile, results, [condition_map, mask], prompt),
-        the reference's process() contract (editany_lora.py:609-938);
-        results_tile is empty (tile refinement is not ported).
+        the reference's process() contract (editany_lora.py:609-938).
         `use_scale_map` scales the SAM control per pixel by `scale_map`, or
         when none is given by 1 - the binarised mask (the SAM control off
         inside the edit region); `use_alpha_mixing` runs the "mix" edit.
         The reference-only arguments, `encoder_interval`, `generator` and
-        the noises go to ``EditPipeline`` as it takes them."""
+        the noises go to ``EditPipeline`` as it takes them. With
+        `enable_tile`, and a "tile" ControlNet in the bundle, the results
+        go through ``EditPipeline.tile_refine`` at
+        `refine_image_resolution` (UniPC, `ddim_steps`, CFG `scale`,
+        `refine_alignment_ratio`), its initial latents `tile_noise` ((S,
+        H/8, W/8, 4)) or drawn from `generator` (default: seeded with
+        `seed`); results_tile is empty otherwise. ``last_nonfinite`` counts
+        both passes."""
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"process() got an unexpected argument {name!r}")
@@ -217,5 +228,15 @@ class EditAnythingEditor:
             ref_scale=ref_scale, ref_sam_scale=ref_sam_scale,
             ref_inpaint_scale=ref_inpaint_scale)
         self.last_nonfinite = pipe.last_nonfinite
-        return ([], [results[i] for i in range(len(results))],
+        results_tile = []
+        if enable_tile and self.tile_control is not None:
+            results_tile = self.pipe.tile_refine(
+                results, mask, positive, tile_control=self.tile_control,
+                negative_prompt=n_prompt,
+                refine_image_resolution=refine_image_resolution,
+                num_steps=ddim_steps, guidance_scale=scale,
+                alignment_ratio=refine_alignment_ratio, seed=seed,
+                noise=tile_noise, generator=generator)
+            self.last_nonfinite += self.pipe.last_nonfinite
+        return (results_tile, [results[i] for i in range(len(results))],
                 [condition_image, mask], positive)

@@ -4,13 +4,14 @@ scale maps, prompt context, VAE encode, initial latents and per-step noise.
 
 Counterpart of ``editanything_tpu/pipelines/generate.py``
 (``GenerationPipeline.__call__``, :168-229, with ``to_uint8``,
-``prepare_condition``, ``embed_prompts`` and ``_encode``) for every sampler
-of engine/denoise.py, encoder caching, per-pixel scale maps and guess mode.
+``prepare_condition``, ``embed_prompts``, ``_decode_tile_spec`` and
+``_encode``) for every sampler of engine/denoise.py, encoder caching,
+per-pixel scale maps and guess mode. Above ``vae_oneshot_max_px`` the VAE
+encodes and decodes tiled (models/vae.py), as the JAX pipelines do.
 Two additions, as in
 ``EditPipeline``: the initial latents can be handed in (``noise``) or drawn
 from an explicit ``generator``. No safety checker is loaded (the JAX
-bundle's default), so the images pass through. Not ported yet: the tiled
-VAE (ROADMAP Queue 1 item 5).
+bundle's default), so the images pass through.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from editanything_tpu_torch.engine import prompts as P
 from editanything_tpu_torch.engine.denoise import DenoiseConfig, build_denoiser
+from editanything_tpu_torch.models.vae import _scale_factor
 from editanything_tpu_torch.pipelines.bundle import ModelBundle
 from editanything_tpu_torch.samplers.schedule import make_timesteps
 from editanything_tpu_torch.utils.image import HWC3, resize_bilinear, resize_image
@@ -37,7 +39,11 @@ class GenerationPipeline:
     """txt2img with one ControlNet condition (sam2image.py semantics); the
     base of ``EditPipeline``."""
 
+    # the one-shot VAE up to this side; above it the encode and decode run
+    # tiled. Per instance (tests lower it to tile tiny images)
     vae_oneshot_max_px = 2048
+    vae_tile_latent = 128        # latent-px decode tile -> 1024^2 image tiles
+    vae_tile_overlap = 32
 
     def __init__(self, bundle: ModelBundle, controlnet: str = "sam"):
         self.bundle = bundle
@@ -47,13 +53,22 @@ class GenerationPipeline:
         # per-image NSFW flags of the last call; None: no checker is loaded
         self.last_nsfw = None
 
+    def _decode_tile_spec(self, h: int, w: int):
+        """(tile, overlap) in latent px for a decode to h x w images, or
+        None where the one-shot decode runs (<= vae_oneshot_max_px)."""
+        if max(h, w) <= self.vae_oneshot_max_px:
+            return None
+        return (self.vae_tile_latent, self.vae_tile_overlap)
+
     def _encode(self, x):
-        """(B, 3, H, W) in [-1, 1] -> scaled latents (fp32)."""
-        if max(x.shape[-2:]) > self.vae_oneshot_max_px:
-            raise NotImplementedError("tiled VAE encode above "
-                                      f"{self.vae_oneshot_max_px} px is not "
-                                      "ported yet (ROADMAP Queue 1 item 5)")
-        return self.bundle.vae.encode_to_latents(x)
+        """(B, 3, H, W) in [-1, 1] -> scaled latents (fp32); tiled above the
+        one-shot bound, with the decode's tile and overlap in image px."""
+        vae = self.bundle.vae
+        if max(x.shape[-2:]) <= self.vae_oneshot_max_px:
+            return vae.encode_to_latents(x)
+        f = _scale_factor(self.bundle.vae_cfg)
+        return vae.encode_to_latents(x, tile=self.vae_tile_latent * f,
+                                     overlap=self.vae_tile_overlap * f)
 
     def prepare_condition(self, condition_map: np.ndarray, h: int, w: int,
                           batch: int) -> torch.Tensor:
@@ -122,10 +137,14 @@ class GenerationPipeline:
         return out
 
     def decode(self, latents) -> np.ndarray:
-        """Final latents -> (B, H, W, 3) uint8 images, counting non-finite
-        values before the cast."""
+        """Final latents -> (B, H, W, 3) uint8 images, tiled above the
+        one-shot bound, counting non-finite values before the cast."""
+        f = _scale_factor(self.bundle.vae_cfg)
+        spec = self._decode_tile_spec(latents.shape[-2] * f,
+                                      latents.shape[-1] * f)
+        tile, overlap = spec if spec else (None, 32)
         imgs = self.bundle.vae.decode_from_latents(
-            latents.to(self.bundle.dtype)).float()
+            latents.to(self.bundle.dtype), tile=tile, overlap=overlap).float()
         self.last_nonfinite = int((~torch.isfinite(imgs)).sum())
         return to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy())
 

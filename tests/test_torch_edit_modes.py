@@ -321,21 +321,17 @@ def test_editor_eta_scale_map_and_alpha_mixing_match_jax(sd15):
 
 
 def test_sampler_and_mode_refusals_name_their_items(sd15):
-    """What is still refused names its ROADMAP item: the tiled VAE encode
-    above 2048 px and tile refinement (item 5), the reference image's
-    caption and textual inversion (item 7); an unknown mode is an error."""
+    """What is still refused names its ROADMAP item: the reference image's
+    caption and textual inversion (item 7); an unknown mode is an error.
+    (The tiled VAE and tile refinement, item 5, are ported:
+    tests/test_torch_hires.py, tests/test_torch_pipelines_extra.py.)"""
     tb, _ = sd15["blend"]
-    pipe = EditPipeline(tb)
     args = dict(image=_checker_image(64, 64), mask=_mask(), prompt="x",
                 condition_image=_checker_image(64, 64), image_resolution=64,
                 num_steps=2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pipe(**dict(args, image_resolution=2112))
     editor = EditAnythingEditor(tb)
     request = dict(image=_checker_image(64, 64), mask=_mask(),
                    condition_image=_checker_image(64, 64))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        editor.process(**request, enable_tile=True)
     for name in ("ref_auto_prompt", "ref_textinv"):
         with pytest.raises(NotImplementedError, match="item 7"):
             editor.process(**request, ref_image=_checker_image(64, 64),

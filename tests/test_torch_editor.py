@@ -149,7 +149,7 @@ def test_process_with_sam_condition_matches_jax(editors):
     assert diff.max() <= IMAGE_LEVELS
 
 
-@pytest.mark.parametrize("arg,value", [("enable_tile", True),
+@pytest.mark.parametrize("arg,value", [("ref_textinv_path", "embedding.bin"),
                                        ("ref_textinv", True),
                                        ("condition_model", "other"),
                                        ("enable_auto_prompt", True)])
