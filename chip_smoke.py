@@ -95,6 +95,26 @@ non-zero, and nothing is caught:
      ControlNet) and one sketch (its scale map) at 512^2; each with its
      seconds, peak memory, kernel B launches equal to what its path
      predicts, kernel A's, and finite outputs of the expected shapes;
+  4e. checkpoints, SD1.5 at published widths in bf16: phase 4's bundle
+     ("sam" and "inpaint"), a second "sam" ControlNet, a safety checker
+     (ViT-L/14 at 224^2, 17 + 3 concepts) and SAM ViT-H, all random from
+     seeds, written into a temporary directory (removed after) as an LDM
+     single file in fp16, diffusers/HF-layout ``.safetensors``, SAM's
+     official ``.pth``, a rank-4 kohya LoRA over every attention and MLP
+     target of the UNet and the text tower and a two-vector TI ``.bin``
+     (bytes and free disk printed first); loaded through
+     ``load_ldm_bundle`` (a dict config mirroring the public SD1.5
+     v1-inference.yaml, the ControlNets, the checker, the LoRA at 0.5) and
+     ``load_sam``, each step timed; every loaded tensor equal to the
+     written value cast to bf16, the LoRA's counts, five targets' W' - W
+     against 0.5 alpha / rank up @ down within bf16 rounding; then a
+     warm-up and a timed ``process(condition_image=None)`` (512^2, 2
+     samples, 30 steps, CFG 9) with ``condition_model`` the second
+     ControlNet's file, the reference image with ``ref_textinv`` and the TI
+     file, and its placeholder in the prompt: the swap in place, the TI
+     rows, two safety flags, kernel B's launches equal to the request's
+     prediction plus SAM's encoder and the checker's 24 layers, C and D
+     launched;
   5. the main path: SAM ViT-H (random bf16 weights) and the same bundle in
      ``EditAnythingEditor``; one warm-up and three timed
      ``process(condition_image=None)`` requests (SAM at 1024^2, the AMG,
@@ -170,6 +190,9 @@ ATTN_SHAPES = [
     ("sd21 32x32 self", 4, 10, 1024, 1024, 64, 64, None),
     ("sd21 16x16 self", 4, 20, 256, 256, 64, 64, None),
     ("sd21 8x8 self", 4, 20, 64, 64, 64, 64, None),
+    # the safety checker's ViT-L/14 at 224^2 over the 2 samples: 256
+    # patches + CLS, a ragged last key tile (phase 4e)
+    ("safety vit-l/14 224", 2, 16, 257, 257, 64, 64, None),
 ]
 # kernel B at the high-resolution path's shapes (phase 4d), bf16 only (the
 # path's dtype): tile refinement at 1024^2, 2 samples under CFG (the UNet's
@@ -626,6 +649,11 @@ def phase_kernels():
                 print_sdpa_backends(q, k, v, scale, reps)
             if dtype == torch.bfloat16 and label.startswith("sam"):
                 headline[f"flash_attention {label}"] = (err, ms, plain, label)
+            if dtype == torch.bfloat16 and label.startswith("safety"):
+                headline["flash_attention safety"] = {
+                    "shape": [b, h, n, m, dqk, dv], "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain, "bound_ms": least,
+                    "bound_by": by, "library_ms": sdpa}
             if dtype == torch.bfloat16 and label == HEADLINE["flash_attention"]:
                 headline["flash_attention"] = (err, ms, plain, label)
                 headline["flash_attention work"] = attention_work(
@@ -1882,7 +1910,8 @@ def transformer_blocks(cfg) -> tuple:
 
 def expected_flash_launches(cfg, steps: int, *, sampler: str = "unipc",
                             encoder_interval: int = 1,
-                            reference: bool = False) -> int:
+                            reference: bool = False, sam_layers: int = 0,
+                            checker_layers: int = 0) -> int:
     """Kernel B's launches in one 2-ControlNet edit request: per model
     evaluation 2 per transformer block of the UNet and both ControlNets (the
     UNet's encoder half and the ControlNets on key steps only under encoder
@@ -1890,7 +1919,10 @@ def expected_flash_launches(cfg, steps: int, *, sampler: str = "unipc",
     adds the write pass (the same blocks again) and one launch per hooked
     block of the UNet and the last ControlNet (the style-fidelity recompute
     beside the read attention); the VAE's mid attention once per encode and
-    decode (the image, the reference, the result)."""
+    decode (the image, the reference, the result); where SAM builds the ID
+    map, one per encoder layer (`sam_layers`, the windows batched); where
+    the bundle has a safety checker, one per tower layer
+    (`checker_layers`) for the decoded batch."""
     enc, dec, cn = transformer_blocks(cfg)
     evals = steps + (sampler == "plms")
     keys = evals if encoder_interval == 1 else -(-steps // encoder_interval)
@@ -1898,7 +1930,7 @@ def expected_flash_launches(cfg, steps: int, *, sampler: str = "unipc",
     n = evals * 2 * dec + keys * 2 * (enc + 2 * cn)
     if reference:
         n += steps * (per_pass + enc + dec + cn)
-    return n + (3 if reference else 2)
+    return n + (3 if reference else 2) + sam_layers + checker_layers
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -2164,6 +2196,349 @@ def phase_high_resolution(bundle) -> dict:
     return launches
 
 
+# phase 4e: the public SD1.5 v1-inference.yaml (CompVis stable-diffusion,
+# configs/stable-diffusion/v1-inference.yaml), the fields it sets, as the
+# dict its parse gives, so that the card needs no yaml package
+SD15_V1_INFERENCE = {"model": {
+    "base_learning_rate": 1.0e-04,
+    "target": "ldm.models.diffusion.ddpm.LatentDiffusion",
+    "params": {
+        "linear_start": 0.00085, "linear_end": 0.0120,
+        "num_timesteps_cond": 1, "log_every_t": 200, "timesteps": 1000,
+        "first_stage_key": "jpg", "cond_stage_key": "txt",
+        "image_size": 64, "channels": 4, "cond_stage_trainable": False,
+        "conditioning_key": "crossattn", "monitor": "val/loss_simple_ema",
+        "scale_factor": 0.18215, "use_ema": False,
+        "unet_config": {
+            "target": "ldm.modules.diffusionmodules.openaimodel.UNetModel",
+            "params": {"image_size": 32, "in_channels": 4, "out_channels": 4,
+                       "model_channels": 320,
+                       "attention_resolutions": [4, 2, 1],
+                       "num_res_blocks": 2, "channel_mult": [1, 2, 4, 4],
+                       "num_heads": 8, "use_spatial_transformer": True,
+                       "transformer_depth": 1, "context_dim": 768,
+                       "use_checkpoint": True, "legacy": False}},
+        "first_stage_config": {
+            "target": "ldm.models.autoencoder.AutoencoderKL",
+            "params": {"embed_dim": 4, "monitor": "val/rec_loss",
+                       "ddconfig": {"double_z": True, "z_channels": 4,
+                                    "resolution": 256, "in_channels": 3,
+                                    "out_ch": 3, "ch": 128,
+                                    "ch_mult": [1, 2, 4, 4],
+                                    "num_res_blocks": 2,
+                                    "attn_resolutions": [], "dropout": 0.0},
+                       "lossconfig": {"target": "torch.nn.Identity"}}},
+        "cond_stage_config": {
+            "target": "ldm.modules.encoders.modules.FrozenCLIPEmbedder"}}}}
+CKPT_LORA_RANK = 4
+CKPT_LORA_ALPHA = 2.0
+CKPT_LORA_MULTIPLIER = 0.5
+CKPT_LORA_SAMPLES = 5
+CKPT_TI_VECTORS = 2
+# free disk beyond the bytes to write
+CKPT_DISK_MARGIN = 2 ** 30
+
+
+def lora_targets(unet, text) -> list:
+    """(kohya name, weight shape) of every target of the reference's LoRAs:
+    each Linear and 1x1 conv of the UNet's transformer blocks (kohya's
+    Transformer2DModel targets: proj_in/out, attn1/attn2 q/k/v/out, the
+    FFN) and of the text tower's CLIPAttention and CLIPMLP."""
+    out = []
+    for name, m in unet.named_modules():
+        if ".attentions." in name and isinstance(m, (torch.nn.Linear,
+                                                     torch.nn.Conv2d)):
+            out.append(("lora_unet_" + name.replace(".", "_"),
+                        tuple(m.weight.shape)))
+    for name, m in text.named_modules():
+        if isinstance(m, torch.nn.Linear) and (".self_attn." in name
+                                                or ".mlp." in name):
+            out.append(("lora_te_text_model_" + name.replace(".", "_"),
+                        tuple(m.weight.shape)))
+    return out
+
+
+def kohya_lora(targets, g) -> dict:
+    """A rank-CKPT_LORA_RANK kohya state dict in fp16 over `targets`: down
+    N(0, 1/in), up N(0, 0.05^2), alpha CKPT_LORA_ALPHA; conv targets take
+    (r, in, 1, 1) and (out, r, 1, 1) factors."""
+    sd = {}
+    r = CKPT_LORA_RANK
+    for name, shape in targets:
+        tail = (1, 1) if len(shape) == 4 else ()
+        down = torch.randn((r, shape[1]) + tail, generator=g, device="cuda")
+        sd[f"{name}.lora_down.weight"] = (down / shape[1] ** 0.5).half()
+        sd[f"{name}.lora_up.weight"] = (0.05 * torch.randn(
+            (shape[0], r) + tail, generator=g, device="cuda")).half()
+        sd[f"{name}.alpha"] = torch.tensor(CKPT_LORA_ALPHA,
+                                           dtype=torch.float16)
+    return sd
+
+
+def loaded_mismatches(module, source: dict, cast, skip=()) -> list:
+    """Names whose loaded tensor differs from `cast(source tensor)`."""
+    return [k for k, v in module.state_dict().items()
+            if k not in skip and not torch.equal(v, cast(source[k]))]
+
+
+def phase_checkpoints(bundle) -> dict:
+    """Phase 4e: the SD1.5 bundle's UNet, VAE and text tower written as an
+    LDM single file (fp16), its "sam" and "inpaint" ControlNets, a second
+    "sam" ControlNet and a safety checker as diffusers/HF ``.safetensors``
+    (fp16), SAM ViT-H as its official ``.pth`` (fp32), a kohya LoRA and a
+    TI embedding, all into a temporary directory removed at the end; the
+    bundle loaded back in bf16 through ``load_ldm_bundle`` and SAM through
+    ``load_sam``; every loaded tensor held against what was written; then
+    a warm-up and a timed ``process`` that swaps the condition model,
+    loads the TI embedding and passes the safety checker. Returns the
+    request's launches."""
+    import importlib.util
+    import shutil
+    import tempfile
+    from editanything_tpu_torch.checkpoints import ldm as LDM
+    from editanything_tpu_torch.checkpoints.lora import (lora_delta,
+                                                         resolve_lora_target)
+    from editanything_tpu_torch.checkpoints.safetensors_io import save_file
+    from editanything_tpu_torch.models import config as C
+    from editanything_tpu_torch.models import sam as SAM
+    from editanything_tpu_torch.models.controlnet import ControlNetModel
+    from editanything_tpu_torch.models.safety import CLIPVisionConfig
+    from editanything_tpu_torch.pipelines.bundle import (_empty, init_weights_,
+                                                         load_sam,
+                                                         random_safety_checker,
+                                                         random_sam)
+    from editanything_tpu_torch.pipelines.editor import EditAnythingEditor
+    from editanything_tpu_torch.text.tokenizer import tiny_tokenizer
+
+    t_phase = time.perf_counter()
+    found = {name: importlib.util.find_spec(name) is not None
+             for name in ("yaml", "safetensors", "PIL")}
+    print(f"[ckpt] importable on this machine (not imported): {found}")
+    bf16, fp16 = torch.bfloat16, torch.float16
+    half = lambda t: t.to(fp16)
+    as_loaded = lambda t: t.to(fp16).to(bf16)
+    g = torch.Generator("cuda").manual_seed(40)
+    t0 = time.perf_counter()
+    swap = init_weights_(_empty(ControlNetModel, C.ControlNetConfig(
+        unet=bundle.unet_cfg), torch.device("cuda"), bf16), g)
+    safety_cfg = CLIPVisionConfig()
+    checker = random_safety_checker(safety_cfg, device="cuda", dtype=bf16,
+                                    generator=g).model
+    sam_cfg = SAM.sam_vit_h()
+    sam = random_sam(sam_cfg, device="cuda", dtype=torch.float32,
+                     generator=g)
+    targets = lora_targets(bundle.unet, bundle.text)
+    lora = kohya_lora(targets, g)
+    ti = torch.randn(CKPT_TI_VECTORS, bundle.text_cfg.hidden_size,
+                     generator=g, device="cuda").cpu()
+    torch.cuda.synchronize()
+    print(f"[ckpt] drew a second SAM ControlNet, the safety checker "
+          f"(ViT-L/14, {safety_cfg.num_concepts} + {safety_cfg.num_special} "
+          f"concepts), SAM ViT-H (fp32), a rank-{CKPT_LORA_RANK} LoRA over "
+          f"{len(targets)} targets and a {CKPT_TI_VECTORS}-vector TI "
+          f"embedding in {time.perf_counter() - t0:.1f} s")
+
+    ldm = LDM.state_dicts_to_ldm(
+        unet={k: half(v) for k, v in bundle.unet.state_dict().items()},
+        vae={k: half(v) for k, v in bundle.vae.state_dict().items()},
+        text={k: half(v) for k, v in bundle.text.state_dict().items()})
+    ldm["cond_stage_model.transformer.text_model.embeddings.position_ids"] = \
+        torch.arange(bundle.text_cfg.max_position_embeddings)[None]
+    cns = {name: bundle.controlnets[name][1] for name in ("sam", "inpaint")}
+    cns["swap"] = swap
+    files = {
+        "sd15 ldm .safetensors": ("v1-5-pruned-emaonly.safetensors", ldm),
+        **{f"controlnet {name}": (f"controlnet_{name}.safetensors",
+                                  {k: half(v) for k, v in
+                                   net.state_dict().items()})
+           for name, net in cns.items()},
+        "safety checker": ("safety_checker.safetensors", {
+            ("vision_model." + k if k.startswith("vision_model.") else k):
+                half(v) for k, v in checker.state_dict().items()}),
+        "lora": ("kohya_lora.safetensors", lora),
+    }
+    sam_sd = {k: v.cpu() for k, v in sam.state_dict().items()}
+    need = (sum(t.numel() * t.element_size() for _, sd in files.values()
+                for t in sd.values())
+            + sum(t.numel() * t.element_size() for t in sam_sd.values()))
+    tmp = tempfile.mkdtemp(prefix="ea_ckpt_")
+    try:
+        usage = shutil.disk_usage(tmp)
+        print(f"[ckpt] {need / 2**30:.2f} GiB to write into {tmp}; disk "
+              f"total {usage.total / 2**30:.1f} GiB, free "
+              f"{usage.free / 2**30:.1f} GiB")
+        check(usage.free > need + CKPT_DISK_MARGIN,
+              f"{usage.free} bytes free, {need} to write")
+        paths = {}
+        t0 = time.perf_counter()
+        for what, (name, sd) in files.items():
+            paths[what] = os.path.join(tmp, name)
+            save_file(sd, paths[what])
+        paths["sam"] = os.path.join(tmp, "sam_vit_h_4b8939.pth")
+        torch.save(sam_sd, paths["sam"])
+        paths["ti"] = os.path.join(tmp, "learned_embeds.bin")
+        torch.save({"<new-obj>": ti}, paths["ti"])
+        written = sum(os.path.getsize(p) for p in paths.values())
+        print(f"[ckpt] wrote {written} bytes ({written / 2**30:.2f} GiB) in "
+              f"{time.perf_counter() - t0:.1f} s: "
+              + ", ".join(f"{os.path.basename(p)} {os.path.getsize(p)}"
+                          for p in paths.values()))
+        del ldm, files, sam_sd
+
+        (lb, cfgs), seconds = _synced(
+            LDM.load_ldm_bundle, SD15_V1_INFERENCE,
+            paths["sd15 ldm .safetensors"],
+            tokenizer=tiny_tokenizer(
+                context_length=bundle.text_cfg.max_position_embeddings),
+            dtype=bf16, device="cuda",
+            controlnet_paths={"sam": paths["controlnet sam"],
+                              "inpaint": paths["controlnet inpaint"]},
+            safety_path=paths["safety checker"], safety_cfg=safety_cfg,
+            lora_specs=[(paths["lora"], CKPT_LORA_MULTIPLIER)])
+        print(f"[ckpt] load_ldm_bundle (the LDM file, 2 ControlNets, the "
+              f"safety checker, the LoRA merged at {CKPT_LORA_MULTIPLIER}): "
+              f"{seconds:.1f} s")
+        loaded_sam, seconds = _synced(load_sam, paths["sam"], sam_cfg,
+                                      device="cuda", dtype=bf16)
+        print(f"[ckpt] load_sam (ViT-H, fp32 file -> bf16): {seconds:.1f} s")
+        for name in ("unet", "vae", "text"):
+            check(cfgs[name] == getattr(bundle, f"{name}_cfg"),
+                  f"v1-inference.yaml's {name} config differs from SD1.5's")
+
+        # what loaded: every tensor the written one cast to bf16
+        counts = lb.lora_counts[0][2]
+        print(f"[ckpt] LoRA: {counts} of {len(targets)} targets written")
+        check(counts == {"merged": len(targets), "skipped": 0},
+              f"LoRA merged {counts}, {len(targets)} targets written")
+        modules = {"unet": lb.unet, "text_encoder": lb.text}
+        lora_weights = {
+            "unet": {n[len("lora_unet_"):] for n, _ in targets
+                     if n.startswith("lora_unet_")},
+            "text": {n for n, _ in targets if n.startswith("lora_te_")}}
+        skip_unet = {k for k in lb.unet.state_dict()
+                     if k.endswith(".weight")
+                     and k[:-7].replace(".", "_") in lora_weights["unet"]}
+        skip_text = {k for k in lb.text.state_dict()
+                     if k.endswith(".weight") and "lora_te_text_model_"
+                     + k[:-7].replace(".", "_") in lora_weights["text"]}
+        check(len(skip_unet) + len(skip_text) == len(targets),
+              "LoRA targets not found among the loaded weights")
+        bad = {
+            "unet": loaded_mismatches(lb.unet, bundle.unet.state_dict(),
+                                      as_loaded, skip_unet),
+            "vae": loaded_mismatches(lb.vae, bundle.vae.state_dict(),
+                                     as_loaded),
+            "text": loaded_mismatches(lb.text, bundle.text.state_dict(),
+                                      as_loaded, skip_text),
+            "safety": loaded_mismatches(lb.safety.model, checker.state_dict(),
+                                        as_loaded),
+            "sam": loaded_mismatches(loaded_sam, sam.state_dict(),
+                                     lambda t: t.to(bf16))}
+        for name in ("sam", "inpaint"):
+            bad[f"controlnet {name}"] = loaded_mismatches(
+                lb.controlnets[name][1], cns[name].state_dict(), as_loaded)
+        n_checked = sum(len(m.state_dict()) for m in (
+            lb.unet, lb.vae, lb.text, lb.safety.model, loaded_sam,
+            lb.controlnets["sam"][1], lb.controlnets["inpaint"][1]))
+        print(f"[ckpt] {n_checked} loaded tensors against the written ones "
+              f"cast to bf16 ({len(targets)} LoRA targets apart): mismatches "
+              f"{ {k: len(v) for k, v in bad.items()} }")
+        check(not any(bad.values()), f"loaded tensors differ: "
+              f"{ {k: v[:3] for k, v in bad.items() if v} }")
+        step = max(1, len(targets) // CKPT_LORA_SAMPLES)
+        for name, _ in targets[::step][:CKPT_LORA_SAMPLES]:
+            grp = {"up": lora[f"{name}.lora_up.weight"].float().cpu().numpy(),
+                   "down": lora[f"{name}.lora_down.weight"].float().cpu()
+                   .numpy(), "alpha": np.float32(CKPT_LORA_ALPHA)}
+            layer = resolve_lora_target(modules, name)
+            src = resolve_lora_target({"unet": bundle.unet,
+                                       "text_encoder": bundle.text}, name)
+            delta, scale = lora_delta(grp, layer.weight.ndim,
+                                      CKPT_LORA_MULTIPLIER)
+            want = scale * torch.from_numpy(delta).cuda()
+            w = layer.weight.float()
+            got = w - as_loaded(src.weight).float()
+            err = (got - want).abs()
+            # three bf16 roundings: the product, its scaling, the sum
+            bound = 2.0 ** -7 * (w.abs() + want.abs())
+            print(f"[ckpt]   LoRA {name} {tuple(w.shape)}: |W' - W - "
+                  f"{CKPT_LORA_MULTIPLIER} alpha/rank up@down| max "
+                  f"{err.max().item():.3e}, bound max "
+                  f"{bound.max().item():.3e}; |delta| max "
+                  f"{want.abs().max().item():.3e}")
+            check(bool((err <= bound).all()),
+                  f"LoRA {name}: W' - W off by more than bf16 rounding")
+
+        # the request
+        editor = EditAnythingEditor(lb, sam=(sam_cfg, loaded_sam))
+        v0 = bundle.text_cfg.vocab_size
+        request = dict(
+            image=_checker_image(512, 512), mask=_square_mask(512, 128, 384),
+            prompt="a photo of <new-obj> on a sofa", a_prompt="best quality",
+            n_prompt="blurry, low quality", num_samples=2,
+            image_resolution=512, detect_resolution=512, ddim_steps=30,
+            scale=9.0, control_scale=0.5,
+            condition_model=paths["controlnet swap"],
+            ref_image=_id_map(512, 512, 5)[:, ::-1],
+            ref_mask=ragged_ref_mask(512), ref_textinv=True,
+            ref_textinv_path=paths["ti"])
+        expected = expected_flash_launches(
+            lb.unet_cfg, 30, reference=True, sam_layers=sam_cfg.depth,
+            checker_layers=safety_cfg.num_layers)
+        results = {}
+        for tag, seed in (("warm-up", 600), ("timed", 601)):
+            _, counts = timed_request(
+                "ckpt", f"{tag} request, process from the loaded files "
+                f"(SAM ID map, condition-model swap, TI, reference, safety "
+                f"checker; 512^2, 2 samples, 30 steps, CFG 9)", editor,
+                editor.process, **request, seed=seed,
+                generator=torch.Generator("cuda").manual_seed(seed))
+            nsfw = editor.pipe.last_nsfw
+            print(f"[ckpt]   kernel B launches {counts['flash_attention']}, "
+                  f"expected {expected}; sam_twoway {counts['sam_twoway']}, "
+                  f"sam_upscale_hyper {counts['sam_upscale_hyper']}; "
+                  f"safety flags {nsfw}")
+            check(counts["flash_attention"] == expected,
+                  f"{tag}: {counts['flash_attention']} kernel B launches, "
+                  f"expected {expected}")
+            check(counts["sam_twoway"] > 0 and counts["sam_upscale_hyper"] > 0,
+                  f"{tag}: the SAM decoder kernels did not launch")
+            check(nsfw is not None and nsfw.dtype == bool
+                  and nsfw.shape == (2,), f"{tag}: safety flags {nsfw}")
+            results[tag] = counts
+            if tag == "warm-up":
+                # the swap in place, "inpaint" untouched, the TI rows
+                check(editor.current_condition_model
+                      == paths["controlnet swap"], "no condition-model swap")
+                swapped = loaded_mismatches(
+                    lb.controlnets["sam"][1], swap.state_dict(), as_loaded)
+                kept = loaded_mismatches(
+                    lb.controlnets["inpaint"][1],
+                    cns["inpaint"].state_dict(), as_loaded)
+                rows = lb.text.embeddings.token_embedding.weight[
+                    v0:v0 + CKPT_TI_VECTORS]
+                ids = lb.tokenizer.encode(request["prompt"])
+                print(f"[ckpt]   after the swap: sam ControlNet mismatches "
+                      f"against the second file {len(swapped)}, inpaint "
+                      f"against its own {len(kept)}; TI rows {v0}.."
+                      f"{v0 + CKPT_TI_VECTORS - 1} equal the file's: "
+                      f"{torch.equal(rows, ti.cuda().to(bf16))}; prompt ids "
+                      f"{ids}")
+                check(not swapped and not kept, "swap or inpaint wrong")
+                check(torch.equal(rows, ti.cuda().to(bf16)),
+                      "TI rows differ from the file's")
+                check(v0 in ids and v0 + 1 in ids,
+                      "the placeholder did not resolve to the TI rows")
+        check(results["warm-up"] == results["timed"],
+              "launch counts differ between the requests")
+    finally:
+        shutil.rmtree(tmp)
+    del lb, editor, loaded_sam, sam, swap, checker
+    torch.cuda.empty_cache()
+    print(f"[ckpt] phase 4e: {time.perf_counter() - t_phase:.1f} s")
+    return {"checkpoints request": results["timed"]}
+
+
 def _synced(fn, *args, **kwargs):
     """(result, seconds) of fn on the host clock, the device synchronised."""
     torch.cuda.synchronize()
@@ -2321,6 +2696,7 @@ def main() -> int:
     mode_launches = phase_full_width_modes()
     mode_launches.update(phase_reference_and_samplers(bundle))
     mode_launches.update(phase_high_resolution(bundle))
+    mode_launches.update(phase_checkpoints(bundle))
     launches = phase_main_path(bundle)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "editanything_tpu"))
@@ -2344,6 +2720,8 @@ def main() -> int:
                "shape": f"{label}, bf16",
                "launches_by_path": {what: counts[name] for what, counts
                                     in mode_launches.items()}}
+        if name == "flash_attention":
+            row["safety_checker_shape"] = headline["flash_attention safety"]
         if name == "resnet_fused":
             row["composed_ms"] = headline["resnet_fused composed"]
             (row["cudnn_convs_ms"],

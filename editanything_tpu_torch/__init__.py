@@ -6,13 +6,14 @@ package, so each module's counterpart has the same path:
 
     core/        primitives and the hand-written Hopper kernels
     csrc/        CUDA C++ sources of the kernels, built at first use
-    models/      UNet, ControlNet, VAE, CLIP text tower (nn.Modules named
-                 after the diffusers modules)
+    models/      UNet, ControlNet, VAE, CLIP text tower, SAM, the safety
+                 checker (nn.Modules named after the published ones)
     samplers/    noise schedule and UniPC
     text/        the CLIP BPE tokenizer
     engine/      prompt embedding and the denoise loop
     pipelines/   the dual-ControlNet inpaint edit
-    checkpoints/ parameter trees of the JAX package -> state dicts
+    checkpoints/ checkpoint files (.safetensors, torch, ldm/cldm), kohya
+                 LoRA, textual inversion; JAX parameter trees -> state dicts
     utils/       host-side image helpers
 
 Activations are NCHW with OIHW conv weights; the pipelines take and return

@@ -1,1 +1,1 @@
-"""Weight conversion into the port's state dicts."""
+"""Checkpoint files and conversions into the port's state dicts."""

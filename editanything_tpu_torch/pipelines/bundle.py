@@ -1,25 +1,36 @@
-"""ModelBundle: the configs and modules one edit needs, with named ControlNets.
+"""ModelBundle: the configs and modules one edit needs, with named
+ControlNets and an optional safety checker.
 
 Counterpart of ``editanything_tpu/pipelines/bundle.py``. Modules are built
-on the meta device and materialised once on their target device, so a
-full-size SD1.5 bundle is initialised on the GPU directly. Every random
-draw takes an explicit ``torch.Generator`` on that device.
+on the meta device and materialised once on their target device: drawn
+there (``random_bundle``, ``random_sam``; every random draw takes an
+explicit ``torch.Generator`` on that device), or filled from checkpoint
+files with ``load_state_dict(..., assign=True)`` (``load_bundle``,
+``load_sam``, checkpoints/ldm.py's ``load_ldm_bundle``), each tensor read
+straight onto the device and cast there, so a full-width file is read once.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
-from editanything_tpu_torch.checkpoints.convert import state_dict_from_tree
+from editanything_tpu_torch.checkpoints.convert import (
+    clip_text_state_dict, load_torch_state_dict, safety_checker_state_dict,
+    state_dict_from_tree)
 from editanything_tpu_torch.core import layers as L
 from editanything_tpu_torch.models import config as C
 from editanything_tpu_torch.models.clip_text import CLIPTextModel
 from editanything_tpu_torch.models.controlnet import ControlNetModel
+from editanything_tpu_torch.models.safety import (CLIPVisionConfig,
+                                                  SafetyChecker,
+                                                  SafetyCheckerModel)
 from editanything_tpu_torch.models.sam import LayerNorm2d, Sam, SAMConfig
 from editanything_tpu_torch.models.unet import UNet2DConditionModel
 from editanything_tpu_torch.models.vae import AutoencoderKL
@@ -42,6 +53,11 @@ class ModelBundle:
         dataclasses.field(default_factory=dict)
     dtype: torch.dtype = torch.bfloat16
     schedule: Any = None          # samplers.NoiseSchedule; None -> SD1.5's
+    # models.safety.SafetyChecker; None (the reference's own operating
+    # point, safety_checker=None at editany_lora.py:369-411) passes through
+    safety: Any = None
+    # (path, multiplier, {"merged", "skipped"}) of each LoRA merged at load
+    lora_counts: list = dataclasses.field(default_factory=list)
 
     @property
     def device(self) -> torch.device:
@@ -52,17 +68,34 @@ class ModelBundle:
             self.schedule = make_schedule()
         return self.schedule
 
+    def run_safety(self, images_uint8: np.ndarray):
+        """uint8 images -> (images with the flagged ones blacked out, per-image
+        flags); (images, None) when no checker is loaded
+        (run_safety_checker, utils/stable_diffusion_controlnet.py:643-653)."""
+        if self.safety is None:
+            return images_uint8, None
+        return self.safety(images_uint8)
+
     def controlnet_cfgs(self, names) -> Tuple[C.ControlNetConfig, ...]:
         return tuple(self.controlnets[n][0] for n in names)
 
     def controlnet_modules(self, names):
         return [self.controlnets[n][1] for n in names]
 
+    @torch.no_grad()
+    def swap_controlnet(self, name: str, state_dict: Mapping) -> None:
+        """Load a ControlNet checkpoint of the same architecture into the
+        named module in place (strict; cast to its device and dtype), so
+        every pipeline holding the module runs the new weights: the
+        reference rebuilds its pipeline instead (editany_lora.py:677-693)."""
+        self.controlnets[name][1].load_state_dict(state_dict, strict=True)
+
     def to(self, device, dtype: Optional[torch.dtype] = None) -> "ModelBundle":
         """Move every module to `device`, and cast it to `dtype` when one is
         given (in place); returns self."""
         for m in [self.unet, self.vae, self.text] + [
-                net for _, net in self.controlnets.values()]:
+                net for _, net in self.controlnets.values()] + (
+                [] if self.safety is None else [self.safety.model]):
             m.to(device=device, dtype=dtype)
         if dtype is not None:
             self.dtype = dtype
@@ -180,12 +213,156 @@ def random_bundle(*, tiny: bool = True, dtype=torch.float32, device="cuda",
                        controlnets=cns, dtype=dtype, schedule=schedule)
 
 
+def module_from_state_dict(cls, cfg, state_dict: Mapping, *, device,
+                          dtype: torch.dtype) -> nn.Module:
+    """`cls(cfg)` built on the meta device and filled from `state_dict`
+    (strict) by assignment, each floating tensor moved to `device` and cast
+    to `dtype` first (a no-op for those already there)."""
+    with torch.device("meta"):
+        module = cls(cfg)
+    sd = {k: v.to(device=device,
+                  dtype=dtype if v.is_floating_point() else None)
+          for k, v in state_dict.items()}
+    module.load_state_dict(sd, strict=True, assign=True)
+    return module.eval()
+
+
+def load_safety_checker(path: str, cfg: Optional[CLIPVisionConfig] = None,
+                        *, device="cuda", dtype: torch.dtype = torch.bfloat16
+                        ) -> SafetyChecker:
+    """A StableDiffusionSafetyChecker file (HF layout) -> ``SafetyChecker``
+    on `device` (the GPU unless the caller asks otherwise) in `dtype`."""
+    device = _target(device)
+    sd = safety_checker_state_dict(load_torch_state_dict(
+        path, device=device, dtype=dtype))
+    return SafetyChecker(module_from_state_dict(
+        SafetyCheckerModel, cfg or CLIPVisionConfig(), sd, device=device,
+        dtype=dtype))
+
+
+def load_sam(path: str, cfg: SAMConfig, *, device="cuda",
+             dtype: torch.dtype = torch.float32) -> Sam:
+    """An official SAM checkpoint (``sam_vit_*.pth``, whose names are the
+    port's) -> ``Sam`` on `device` (the GPU unless the caller asks
+    otherwise) in `dtype`; the JAX package's apps/cli.py:66-71."""
+    device = _target(device)
+    return module_from_state_dict(
+        Sam, cfg, load_torch_state_dict(path, device=device, dtype=dtype),
+        device=device, dtype=dtype)
+
+
+def _merge_lora_specs(unet: nn.Module, text: nn.Module, lora_specs) -> list:
+    """Merge kohya LoRA files, each a path or (path, multiplier), in order;
+    returns (path, multiplier, counts) of each and warns for a file that
+    merged into no target, as the JAX package does."""
+    from editanything_tpu_torch.checkpoints.lora import merge_kohya_lora
+    done = []
+    for spec in lora_specs:
+        path, mult = spec if isinstance(spec, (tuple, list)) else (spec, 1.0)
+        counts = merge_kohya_lora({"unet": unet, "text_encoder": text},
+                                  load_torch_state_dict(path),
+                                  multiplier=float(mult))
+        if counts["merged"] == 0:
+            warnings.warn(f"LoRA {path}: no targets merged "
+                          f"(skipped {counts['skipped']})")
+        done.append((path, float(mult), counts))
+    return done
+
+
+def assemble_bundle(*, unet_cfg: C.UNetConfig, vae_cfg: C.VAEConfig,
+                    text_cfg: C.CLIPTextConfig,
+                    controlnet_cfg: C.ControlNetConfig, unet: Mapping,
+                    vae: Mapping, text: Mapping,
+                    controlnets: Mapping[str, Mapping], tokenizer,
+                    dtype: torch.dtype, device, safety_path=None,
+                    safety_cfg=None, lora_specs=(), schedule=None
+                    ) -> ModelBundle:
+    """A bundle from the port's state dicts of each module, the LoRA files
+    merged and the safety checker loaded."""
+    def build(cls, cfg, sd):
+        return module_from_state_dict(cls, cfg, sd, device=device,
+                                      dtype=dtype)
+    unet_m = build(UNet2DConditionModel, unet_cfg, unet)
+    text_m = build(CLIPTextModel, text_cfg, text)
+    lora_counts = _merge_lora_specs(unet_m, text_m, lora_specs)
+    return ModelBundle(
+        unet_cfg=unet_cfg, vae_cfg=vae_cfg, text_cfg=text_cfg, unet=unet_m,
+        vae=build(AutoencoderKL, vae_cfg, vae), text=text_m,
+        tokenizer=tokenizer,
+        controlnets={name: (controlnet_cfg,
+                            build(ControlNetModel, controlnet_cfg, sd))
+                     for name, sd in controlnets.items()},
+        dtype=dtype, schedule=schedule, lora_counts=lora_counts,
+        safety=(None if not safety_path else load_safety_checker(
+            safety_path, safety_cfg, device=device, dtype=dtype)))
+
+
+def load_bundle(*, unet_path: str, vae_path: str, text_path: str, tokenizer,
+                controlnet_paths: Mapping[str, str],
+                unet_cfg: Optional[C.UNetConfig] = None,
+                vae_cfg: Optional[C.VAEConfig] = None,
+                text_cfg: Optional[C.CLIPTextConfig] = None,
+                controlnet_cfg: Optional[C.ControlNetConfig] = None,
+                safety_path: Optional[str] = None,
+                safety_cfg: Optional[CLIPVisionConfig] = None,
+                lora_specs=(), dtype: torch.dtype = torch.bfloat16,
+                device="cuda") -> ModelBundle:
+    """A bundle from diffusers/HF-layout checkpoint files (UNet, VAE, CLIP
+    text tower, named ControlNets; optional safety checker), the JAX
+    package's ``load_bundle`` (:135-190). `lora_specs`: kohya LoRA files,
+    each a path or (path, multiplier), merged into the UNet and text tower
+    at load (editany_lora.py:197-329). Configs default to SD1.5's (the text
+    tower's to OpenCLIP-H where the UNet's context is not 768). Built on
+    `device` (the GPU unless the caller asks otherwise) in `dtype`."""
+    device = _target(device)
+    ucfg = unet_cfg or C.sd15_unet()
+    tcfg = text_cfg or (C.clip_vit_l() if ucfg.cross_attention_dim == 768
+                        else C.openclip_vit_h())
+
+    def read(path):
+        return load_torch_state_dict(path, device=device, dtype=dtype)
+    return assemble_bundle(
+        unet_cfg=ucfg, vae_cfg=vae_cfg or C.VAEConfig(), text_cfg=tcfg,
+        controlnet_cfg=controlnet_cfg or C.ControlNetConfig(unet=ucfg),
+        unet=read(unet_path), vae=read(vae_path),
+        text=clip_text_state_dict(read(text_path)),
+        controlnets={n: read(p) for n, p in controlnet_paths.items()},
+        tokenizer=tokenizer, dtype=dtype, device=device,
+        safety_path=safety_path, safety_cfg=safety_cfg,
+        lora_specs=lora_specs)
+
+
 def module_from_tree(cls, cfg, tree: Mapping) -> nn.Module:
     """Build `cls(cfg)` in fp32 on the CPU and load a JAX-package parameter
     tree into it (strict: every parameter present, nothing left over)."""
     module = _empty(cls, cfg, torch.device("cpu"), torch.float32)
     module.load_state_dict(state_dict_from_tree(tree), strict=True)
     return module
+
+
+@torch.no_grad()
+def random_safety_checker(cfg: CLIPVisionConfig, *, device="cuda",
+                          dtype=torch.float32,
+                          generator: Optional[torch.Generator] = None
+                          ) -> SafetyChecker:
+    """A safety checker with random weights on `device` (the GPU unless the
+    caller asks otherwise), drawn as the JAX package's
+    ``init_safety_checker``: the tower by ``init_weights_``, the class
+    embedding N(0, 0.02), the concept and special-care embeddings N(0, 1),
+    every threshold 0.2. `generator` lives on `device` (default: seed 0
+    there)."""
+    device = _target(device)
+    if generator is None:
+        generator = torch.Generator(device).manual_seed(0)
+    model = init_weights_(_empty(SafetyCheckerModel, cfg, device, dtype),
+                          generator)
+    model.vision_model.embeddings.class_embedding.normal_(
+        0.0, 0.02, generator=generator)
+    model.concept_embeds.normal_(0.0, 1.0, generator=generator)
+    model.special_care_embeds.normal_(0.0, 1.0, generator=generator)
+    model.concept_embeds_weights.fill_(0.2)
+    model.special_care_embeds_weights.fill_(0.2)
+    return SafetyChecker(model)
 
 
 @torch.no_grad()

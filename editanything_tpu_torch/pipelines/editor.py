@@ -17,21 +17,31 @@ map of the SAM control (``use_scale_map``, derived from the mask unless
 ``style_fidelity``, ``ref_scale``, ``ref_sam_scale``,
 ``ref_inpaint_scale``), tile refinement (``enable_tile``,
 ``refine_image_resolution``, ``refine_alignment_ratio``, through the
-bundle's "tile" ControlNet) and, beyond the JAX editor's arguments,
+bundle's "tile" ControlNet), the condition-model swap
+(``condition_model``: a checkpoint path, or a name in
+``condition_model_paths``, loaded into the "sam" ControlNet in place),
+textual inversion of the reference crop (``ref_textinv`` with
+``ref_textinv_path``: the embedding loaded and its placeholder
+``textinv_token`` registered, or the crop staged for training),
+``EA_SAVE_INPUTS=1`` capture and, beyond the JAX editor's arguments,
 ``encoder_interval``. Not ported yet; set to anything but its default, each
-raises ``NotImplementedError`` naming its ROADMAP item: auto prompt,
-condition-model swap, the ref image's caption and textual inversion, and
-``EA_SAVE_INPUTS`` capture (Queue 1 item 7).
+raises ``NotImplementedError`` naming its ROADMAP item: the auto prompts
+(Queue 1 item 7, the captioner).
 """
 
 from __future__ import annotations
 
 import os
+import pickle
+import warnings
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from editanything_tpu_torch.checkpoints.convert import load_torch_state_dict
+from editanything_tpu_torch.checkpoints.lora import (append_textual_inversion,
+                                                     load_ti_file)
 from editanything_tpu_torch.models import sam as SAM
 from editanything_tpu_torch.perception.amg import (AMGConfig, _grid_points,
                                                    build_amg, encode_id_map)
@@ -39,16 +49,13 @@ from editanything_tpu_torch.perception.predictor import SamPredictor
 from editanything_tpu_torch.pipelines.bundle import ModelBundle
 from editanything_tpu_torch.pipelines.edit import EditPipeline
 from editanything_tpu_torch.utils.image import (HWC3, resize_image,
-                                                resize_points)
+                                                resize_points, write_png)
 
 # process() arguments of the JAX editor that are not ported yet: their
 # defaults, and the ROADMAP item that ports each
 _NOT_PORTED = {
     "enable_auto_prompt": (False, "Queue 1 item 7 (captioner)"),
-    "condition_model": (None, "Queue 1 item 7 (ControlNet hot-swap)"),
     "ref_auto_prompt": (False, "Queue 1 item 7 (captioner)"),
-    "ref_textinv": (False, "Queue 1 item 7 (textual inversion)"),
-    "ref_textinv_path": (None, "Queue 1 item 7 (textual inversion)"),
 }
 
 
@@ -96,6 +103,37 @@ class EditAnythingEditor:
         self.click_points: List[Tuple[int, int, int]] = []
         # non-finite values in the last edit's images, before the uint8 cast
         self.last_nonfinite = None
+        # textual inversion: where the ref crop is staged for training, and
+        # the placeholder a loaded embedding registers
+        self.textinv_stage_dir = "./utils/tmp/textinv/img"
+        self.textinv_token = "<new-obj>"
+        # the "sam" ControlNet's checkpoint; "EditAnything" is the
+        # reference's name for the one the bundle was built with
+        self.current_condition_model = "EditAnything"
+        # name -> checkpoint path, for names that are not paths
+        self.condition_model_paths: dict = {}
+
+    def set_condition_model(self, name_or_path: Optional[str]) -> bool:
+        """Load another checkpoint into the "sam" ControlNet in place (the
+        reference rebuilds its pipeline, editany_lora.py:677-693). Returns
+        whether it swapped: None, "" and the current name keep it, and so
+        does, with a warning, a name that is neither a file nor in
+        ``condition_model_paths`` (nothing is fetched)."""
+        if name_or_path in (None, "", self.current_condition_model):
+            return False
+        path = self.condition_model_paths.get(name_or_path, name_or_path)
+        if not os.path.exists(path):
+            warnings.warn(
+                f"condition model {name_or_path!r} is not a local path and "
+                "has no entry in editor.condition_model_paths; keeping "
+                f"{self.current_condition_model!r} (nothing is downloaded)")
+            return False
+        net = self.bundle.controlnets["sam"][1]
+        w = net.conv_in.weight
+        self.bundle.swap_controlnet("sam", load_torch_state_dict(
+            path, device=w.device, dtype=w.dtype))
+        self.current_condition_model = name_or_path
+        return True
 
     # -- SAM auto condition ----------------------------------------------
 
@@ -137,6 +175,53 @@ class EditAnythingEditor:
     def clear_clicks(self):
         self.click_points = []
 
+    # -- the reference crop and textual inversion ------------------------
+
+    @staticmethod
+    def _crop_masked_region(ref_image: np.ndarray,
+                            ref_mask: Optional[np.ndarray]) -> np.ndarray:
+        """The bounding box of the masked ref region, pixels outside the
+        mask zeroed (editany_lora.py:708-722)."""
+        img = HWC3(np.asarray(ref_image, np.uint8))
+        if ref_mask is None:
+            return img
+        m = np.asarray(ref_mask, np.float32)
+        if m.ndim == 3:
+            m = m[..., 0]
+        if m.max() > 1.5:
+            m = m / 255.0
+        ys, xs = np.nonzero(m >= 0.5)
+        if len(ys) == 0:
+            return img
+        y0, y1 = ys.min(), ys.max() + 1
+        x0, x1 = xs.min(), xs.max() + 1
+        crop = img[y0:y1, x0:x1].astype(np.float32)
+        crop *= m[y0:y1, x0:x1, None]
+        return crop.astype(np.uint8)
+
+    def _load_or_stage_textinv(self, crop: np.ndarray,
+                               path: Optional[str]) -> bool:
+        """Append the TI embedding at `path` to the text tower's table and
+        register ``textinv_token`` for its rows; without a file there,
+        stage the ref crop as ``ref.png`` for TI training
+        (editany_lora.py:732-745). Returns whether it loaded."""
+        if path and os.path.exists(path):
+            ids = append_textual_inversion(self.bundle.text, load_ti_file(path))
+            self.bundle.tokenizer.add_placeholder(self.textinv_token, ids)
+            return True
+        os.makedirs(self.textinv_stage_dir, exist_ok=True)
+        write_png(os.path.join(self.textinv_stage_dir, "ref.png"), crop)
+        print(f"No textual-inversion embedding found; staged the ref crop "
+              f"in {self.textinv_stage_dir} — train with "
+              f"`editanything-tpu train-ti --train-data-dir "
+              f"{self.textinv_stage_dir}` (editany_lora.py:737-745)")
+        return False
+
+    def train_staged_textinv(self, output_path: str, **kwargs) -> str:
+        """Textual-inversion training on the staged crop: not ported."""
+        raise NotImplementedError("textual-inversion training: not ported yet "
+                                  "(ROADMAP Queue 1 item 9)")
+
     # -- the main edit -----------------------------------------------------
 
     def process(self, *, image: np.ndarray, mask: Optional[np.ndarray],
@@ -165,6 +250,9 @@ class EditAnythingEditor:
                 ref_scale: float = 0.0,
                 ref_sam_scale: Optional[float] = None,
                 ref_inpaint_scale: Optional[float] = None,
+                condition_model: Optional[str] = None,
+                ref_textinv: bool = False,
+                ref_textinv_path: Optional[str] = None,
                 generator: Optional[torch.Generator] = None, noise=None,
                 mix_noise=None, step_noise=None, eta_noise=None,
                 tile_noise=None, **not_ported):
@@ -174,7 +262,10 @@ class EditAnythingEditor:
         when none is given by 1 - the binarised mask (the SAM control off
         inside the edit region); `use_alpha_mixing` runs the "mix" edit.
         The reference-only arguments, `encoder_interval`, `generator` and
-        the noises go to ``EditPipeline`` as it takes them. With
+        the noises go to ``EditPipeline`` as it takes them.
+        `condition_model` swaps the "sam" ControlNet first
+        (``set_condition_model``); with `ref_image`, `ref_textinv` loads the
+        embedding at `ref_textinv_path` or stages the masked crop. With
         `enable_tile`, and a "tile" ControlNet in the bundle, the results
         go through ``EditPipeline.tile_refine`` at
         `refine_image_resolution` (UniPC, `ddim_steps`, CFG `scale`,
@@ -190,10 +281,24 @@ class EditAnythingEditor:
                                          and value == default)):
                 raise NotImplementedError(f"{name}={value!r}: not ported yet "
                                           f"(ROADMAP {item})")
+        if condition_model is not None:
+            self.set_condition_model(condition_model)
         if os.environ.get("EA_SAVE_INPUTS") == "1":
-            raise NotImplementedError("EA_SAVE_INPUTS capture: not ported yet "
-                                      "(ROADMAP Queue 1 item 7)")
+            # the reference's pickle-replay capture (annotator/util.py:77-95)
+            with open("input_data.pkl", "wb") as f:
+                pickle.dump({"args": (), "kwargs": dict(
+                    image=image, mask=mask, prompt=prompt,
+                    a_prompt=a_prompt, n_prompt=n_prompt,
+                    condition_image=condition_image,
+                    num_samples=num_samples,
+                    image_resolution=image_resolution,
+                    ddim_steps=ddim_steps, scale=scale,
+                    control_scale=control_scale, seed=seed)}, f)
         image = HWC3(np.asarray(image, np.uint8))
+        if ref_image is not None and ref_textinv:
+            self._load_or_stage_textinv(
+                self._crop_masked_region(ref_image, ref_mask),
+                ref_textinv_path)
         if condition_image is None:
             condition_image = self.get_sam_control(
                 resize_image(image, detect_resolution))

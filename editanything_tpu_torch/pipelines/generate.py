@@ -10,8 +10,10 @@ per-pixel scale maps and guess mode. Above ``vae_oneshot_max_px`` the VAE
 encodes and decodes tiled (models/vae.py), as the JAX pipelines do.
 Two additions, as in
 ``EditPipeline``: the initial latents can be handed in (``noise``) or drawn
-from an explicit ``generator``. No safety checker is loaded (the JAX
-bundle's default), so the images pass through.
+from an explicit ``generator``. Decoded images pass the bundle's safety
+checker, where one is loaded, as every pipeline's of the JAX package do
+(edit.py:276, :348, generate.py:227, img2img.py:104); its flags are
+``last_nsfw``.
 """
 
 from __future__ import annotations
@@ -138,7 +140,8 @@ class GenerationPipeline:
 
     def decode(self, latents) -> np.ndarray:
         """Final latents -> (B, H, W, 3) uint8 images, tiled above the
-        one-shot bound, counting non-finite values before the cast."""
+        one-shot bound, counting non-finite values before the cast, then
+        through the bundle's safety checker (flags in ``last_nsfw``)."""
         f = _scale_factor(self.bundle.vae_cfg)
         spec = self._decode_tile_spec(latents.shape[-2] * f,
                                       latents.shape[-1] * f)
@@ -146,7 +149,9 @@ class GenerationPipeline:
         imgs = self.bundle.vae.decode_from_latents(
             latents.to(self.bundle.dtype), tile=tile, overlap=overlap).float()
         self.last_nonfinite = int((~torch.isfinite(imgs)).sum())
-        return to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy())
+        out, self.last_nsfw = self.bundle.run_safety(
+            to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy()))
+        return out
 
     @torch.inference_mode()
     def __call__(self, *, prompt: str, condition_image: np.ndarray,

@@ -3,7 +3,9 @@
 ``HWC3`` and ``resize_image`` follow ``editanything_tpu/utils/image.py``.
 ``resize_image`` resamples as PIL's ``Image.resize`` does (LANCZOS when
 upscaling, BOX when downscaling), in numpy and to the level, so no path of
-the port needs PIL at any resolution. ``resize_nearest``/``resize_bilinear``
+the port needs PIL at any resolution; ``resize_pil`` takes any of those
+filters and BICUBIC at a given size (the safety checker's resize).
+``write_png`` writes an 8-bit RGB PNG with ``zlib`` alone. ``resize_nearest``/``resize_bilinear``
 reproduce ``jax.image.resize``: its "nearest" samples at half-pixel centres
 (torch's ``nearest-exact``), its "bilinear" antialiases when downscaling.
 ``resize_uint8_bilinear`` stands in for PIL's BILINEAR resize of uint8
@@ -13,6 +15,8 @@ images (within one level of it), so the SAM phase needs no PIL.
 from __future__ import annotations
 
 import math
+import struct
+import zlib
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -59,7 +63,18 @@ def _box(x: float) -> float:
     return 1.0 if -0.5 < x <= 0.5 else 0.0
 
 
-_FILTERS = {"lanczos": (_lanczos, 3.0), "box": (_box, 0.5)}
+def _bicubic(x: float) -> float:
+    a = -0.5
+    x = abs(x)
+    if x < 1.0:
+        return ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * a
+    return 0.0
+
+
+_FILTERS = {"lanczos": (_lanczos, 3.0), "box": (_box, 0.5),
+            "bicubic": (_bicubic, 2.0)}
 
 
 def _resample_matrix(in_size: int, out_size: int, filt: str) -> np.ndarray:
@@ -110,8 +125,20 @@ def resize_image(input_image: np.ndarray, resolution: int) -> np.ndarray:
         return input_image
     if input_image.dtype != np.uint8:
         raise TypeError(f"resize_image takes uint8, got {input_image.dtype}")
-    filt = "lanczos" if k > 1 else "box"
-    out = input_image if input_image.ndim == 3 else input_image[:, :, None]
+    return resize_pil(input_image, (h, w), "lanczos" if k > 1 else "box")
+
+
+def resize_pil(image: np.ndarray, size: Tuple[int, int],
+               filt: str) -> np.ndarray:
+    """uint8 (H, W[, C]) -> (h, w[, C]) as PIL's ``Image.resize((w, h),
+    filt)`` computes it (filt "lanczos", "box" or "bicubic"): horizontal
+    pass first, each pass clipped to uint8, a pass skipped where its side
+    keeps its size."""
+    if image.dtype != np.uint8:
+        raise TypeError(f"resize_pil takes uint8, got {image.dtype}")
+    h, w = size
+    h0, w0 = image.shape[:2]
+    out = image if image.ndim == 3 else image[:, :, None]
     if w != w0:     # (H * C, W) @ (W, w)
         mat = _resample_matrix(w0, w, filt)
         hh, _, c = out.shape
@@ -122,8 +149,28 @@ def resize_image(input_image: np.ndarray, resolution: int) -> np.ndarray:
         hh, ww, c = out.shape
         out = _clip8(mat @ out.reshape(hh, ww * c).astype(np.float64)
                      ).reshape(h, ww, c)
-    return np.ascontiguousarray(
-        out if input_image.ndim == 3 else out[:, :, 0])
+    return np.ascontiguousarray(out if image.ndim == 3 else out[:, :, 0])
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """uint8 (H, W, 3) -> an 8-bit RGB PNG (no filter on any row, zlib
+    level 6)."""
+    if image.dtype != np.uint8 or image.ndim != 3 or image.shape[2] != 3:
+        raise ValueError(f"write_png takes uint8 (H, W, 3), got "
+                         f"{image.dtype} {image.shape}")
+    h, w = image.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(image).reshape(h, w * 3)],
+                          axis=1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(chunk(b"IEND", b""))
 
 
 def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:

@@ -322,9 +322,10 @@ def test_editor_eta_scale_map_and_alpha_mixing_match_jax(sd15):
 
 def test_sampler_and_mode_refusals_name_their_items(sd15):
     """What is still refused names its ROADMAP item: the reference image's
-    caption and textual inversion (item 7); an unknown mode is an error.
-    (The tiled VAE and tile refinement, item 5, are ported:
-    tests/test_torch_hires.py, tests/test_torch_pipelines_extra.py.)"""
+    caption (item 7); an unknown mode is an error. (The tiled VAE and tile
+    refinement, item 5, are ported: tests/test_torch_hires.py,
+    tests/test_torch_pipelines_extra.py; textual inversion, item 6:
+    tests/test_torch_load_e2e.py.)"""
     tb, _ = sd15["blend"]
     args = dict(image=_checker_image(64, 64), mask=_mask(), prompt="x",
                 condition_image=_checker_image(64, 64), image_resolution=64,
@@ -332,7 +333,7 @@ def test_sampler_and_mode_refusals_name_their_items(sd15):
     editor = EditAnythingEditor(tb)
     request = dict(image=_checker_image(64, 64), mask=_mask(),
                    condition_image=_checker_image(64, 64))
-    for name in ("ref_auto_prompt", "ref_textinv"):
+    for name in ("ref_auto_prompt",):
         with pytest.raises(NotImplementedError, match="item 7"):
             editor.process(**request, ref_image=_checker_image(64, 64),
                            ref_mask=_mask(), **{name: True})

@@ -149,10 +149,8 @@ def test_process_with_sam_condition_matches_jax(editors):
     assert diff.max() <= IMAGE_LEVELS
 
 
-@pytest.mark.parametrize("arg,value", [("ref_textinv_path", "embedding.bin"),
-                                       ("ref_textinv", True),
-                                       ("condition_model", "other"),
-                                       ("enable_auto_prompt", True)])
+@pytest.mark.parametrize("arg,value", [("enable_auto_prompt", True),
+                                       ("ref_auto_prompt", True)])
 def test_process_refuses_arguments_not_ported(editors, arg, value):
     _, ted = editors
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -122,6 +122,23 @@ def test_flash_attention_wide_head_matches_plain(cuda_device, dtype, batch,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_safety_checker_shape_matches_plain(cuda_device,
+                                                            dtype):
+    """The safety checker's ViT-L/14 at 224^2 over 2 images: 16 heads of
+    64 over the 257 tokens (256 patches + CLS), a ragged last tile."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(6, 2, 16, 257, 257, 64, 64))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    want = tfa.flash_attention_reference(q, k, v)
+    err, bound = _attention_err_and_bound(got, want)
+    assert err <= bound
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 6.25e-2)])
 @pytest.mark.parametrize("eps,apply_silu", GN_CASES)
