@@ -17,7 +17,9 @@ non-zero, and nothing is caught:
      layers), SD2.1's (64-wide heads) and the reference read attention's
      (N queries over N + n keys, n the reference tokens inside
      ``ragged_ref_mask`` at each UNet level, no multiple of the key tile),
-     each also beside its bound
+     the safety checker's ViT-L/14 and BLIP-2's (the ViT-g/14's 16 heads of
+     88 over 257 tokens, the Q-Former's 32 queries over themselves and over
+     the 257 image tokens, at batch 1 and 10), each also beside its bound
      (least time for the same work) and PyTorch's
      scaled_dot_product_attention at the same shape and scale, with the
      SDPA backend that ran named at the UNet's 64x64 self and the VAE's
@@ -54,7 +56,10 @@ non-zero, and nothing is caught:
      high-resolution surface in fp32 (tile refinement 64^2 -> 128^2
      through ``tile_refine`` and ``process(enable_tile=True)``, img2img, a
      sketch, txt2img and an edit whose VAE runs in 2 x 2 tiles), images
-     within 2 levels; then a small SAM with the published
+     within 2 levels; the tiny BLIP-2 captioner (image tokens, queries and
+     logits within 1e-4, greedy tokens equal) and a tiny
+     ``process(enable_auto_prompt=True)`` (prompts equal, images within 1
+     level); then a small SAM with the published
      decoder widths (so the decoder kernels launch): a 4x4-point AMG with
      the quality filters open and one click;
   4. full width, edit only: SD1.5 UNet + three ControlNets (sam, inpaint
@@ -123,7 +128,20 @@ non-zero, and nothing is caught:
      decode batches, selection/NMS and ID map; one AMG with the filters
      open (every candidate valid, NMS at its worst) and one click; outputs
      must be finite (2, 512, 512, 3) uint8 and every kernel's launch
-     counter must grow during the timed requests.
+     counter must grow during the timed requests;
+  4f. the captioner, run after phase 5 on its editor (SD1.5 bundle, SAM
+     ViT-H): BLIP-2-OPT-2.7B at the published widths, random bf16 weights
+     drawn on the card, a synthetic 50272-entry GPT-2 vocabulary; the
+     vision tower and Q-Former in bf16 through kernel B and through its
+     twin, each against fp32 (at most 2x as far as the twin); a warm-up
+     and 3 timed 50-token captions of a 512^2 image, split once into
+     encode, prefill and decode; ``semantic_labels`` over the top 10
+     regions of the AMG with its filters and box NMS open (and
+     ``semantic`` where PIL is installed); one
+     ``process(enable_auto_prompt=True)`` and one
+     ``process(ref_auto_prompt=True)``, each with its seconds, peak memory,
+     kernel B's launches equal to its path's plus 57 per captioner call,
+     and the caption in the returned prompt.
 The last two lines are the kernels' JSON summary and the result line.
 Nothing here imports jax or the JAX package (editanything_tpu); the run
 checks that no module of either was loaded.
@@ -193,6 +211,16 @@ ATTN_SHAPES = [
     # the safety checker's ViT-L/14 at 224^2 over the 2 samples: 256
     # patches + CLS, a ragged last key tile (phase 4e)
     ("safety vit-l/14 224", 2, 16, 257, 257, 64, 64, None),
+    # BLIP-2 (phase 4f): the EVA ViT-g/14 at 224^2, 16 heads of 88 (padded
+    # to 96 in the kernel) over 257 tokens, and the Q-Former's 32 queries,
+    # 12 heads of 64, over themselves and over the 257 image tokens; batch 1
+    # for a caption, 10 for semantic's crops
+    ("blip2 vit-g/14 224", 1, 16, 257, 257, 88, 88, None),
+    ("blip2 vit-g/14 224, 10 crops", 10, 16, 257, 257, 88, 88, None),
+    ("blip2 qformer self", 1, 12, 32, 32, 64, 64, None),
+    ("blip2 qformer self, 10 crops", 10, 12, 32, 32, 64, 64, None),
+    ("blip2 qformer cross", 1, 12, 32, 257, 64, 64, None),
+    ("blip2 qformer cross, 10 crops", 10, 12, 32, 257, 64, 64, None),
 ]
 # kernel B at the high-resolution path's shapes (phase 4d), bf16 only (the
 # path's dtype): tile refinement at 1024^2, 2 samples under CFG (the UNet's
@@ -258,6 +286,12 @@ ATTN_BF16_REL_BOUND = 2.0 ** -6
 GN_BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 6.25e-2}
 # the shapes at which phase 2 names the SDPA backend that ran
 SDPA_BACKEND_SHAPES = ("unet 64x64 self", "vae mid 64x64")
+# phase 4f: new tokens per caption (the reference's auto prompt,
+# editany_lora.py:512-520), timed captions after a warm-up, and the regions
+# semantic labels (sam2semantic.py's top 10)
+CAPTION_NEW_TOKENS = 50
+CAPTION_REQUESTS = 3
+SEMANTIC_TOP_K = 10
 HEADLINE = {"flash_attention": "unet 64x64 self",
             "group_norm_silu": "vae decoder 512x512x256",
             "sam_twoway": "amg batch", "sam_upscale_hyper": "amg batch",
@@ -353,6 +387,11 @@ TINY_DENOISE_CASES = {
 }
 TINY_DENOISE_STEPS = 5
 TINY_DENOISE_IMAGE_LEVELS = 1
+# the tiny captioner (models/blip2.py's tiny_blip2_config) in fp32, CUDA
+# (kernels) vs CPU (plain twins): image tokens, queries and logits of
+# magnitude ~1-5, fp32 sums in other orders (TF32 off); tokens equal
+TINY_CAPTION_TOL = 1e-4
+TINY_CAPTION_TOKENS = 6
 # the fused resnet block: (label, N, Cin, Cout, time embedding, H = W, eps)
 # at 512^2 with 2 samples under CFG (UNet batch 4) and the VAE at batch 2
 RESNET_SHAPES = [
@@ -651,6 +690,11 @@ def phase_kernels():
                 headline[f"flash_attention {label}"] = (err, ms, plain, label)
             if dtype == torch.bfloat16 and label.startswith("safety"):
                 headline["flash_attention safety"] = {
+                    "shape": [b, h, n, m, dqk, dv], "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain, "bound_ms": least,
+                    "bound_by": by, "library_ms": sdpa}
+            if dtype == torch.bfloat16 and label.startswith("blip2"):
+                headline.setdefault("flash_attention blip2", {})[label] = {
                     "shape": [b, h, n, m, dqk, dv], "max_abs_err": err,
                     "ms": ms, "plain_ms": plain, "bound_ms": least,
                     "bound_by": by, "library_ms": sdpa}
@@ -1300,6 +1344,89 @@ def phase_tiny_parity():
         tiny_mode_parity(case, *spec, TINY_DENOISE_STEPS,
                          TINY_DENOISE_IMAGE_LEVELS)
     phase_tiny_hires_parity()
+    phase_tiny_captioner_parity()
+
+
+def tiny_caption_run(device: str):
+    """The tiny captioner (random weights, seed 4, fp32) on `device`: image
+    tokens, queries, OPT's logits over [queries; prompt], greedy tokens of
+    two 48x40 images, and kernel B's launches."""
+    from editanything_tpu_torch.core import flash_attention as FA
+    from editanything_tpu_torch.models import blip2 as TB
+    from editanything_tpu_torch.pipelines.bundle import random_blip2
+    from editanything_tpu_torch.pipelines.captioner import Captioner, preprocess
+    from editanything_tpu_torch.text.tokenizer import tiny_gpt2_tokenizer
+    cfg = TB.tiny_blip2_config()
+    model = random_blip2(cfg, device="cpu", seed=4).to(device)
+    cap = Captioner(model, tiny_gpt2_tokenizer(), prompt="Q:",
+                    max_new_tokens=TINY_CAPTION_TOKENS)
+    imgs = np.random.default_rng(12).integers(0, 256, (2, 48, 40, 3), np.uint8)
+    before = FA.flash_attention.launches
+    with torch.inference_mode():
+        px = preprocess(imgs, cfg.image_size, device)
+        img = TB.vision_encoder(model, px)
+        queries = TB.qformer(model, img)
+        prompt = torch.tensor(cap.prompt_ids, device=device)[None].expand(2, -1)
+        emb = torch.cat([model.language_projection(queries),
+                         model.language_model.embed_tokens(prompt)], dim=1)
+        logits, _ = TB.opt_forward(model, emb)
+        toks = cap.tokens(imgs)
+    outs = [t.float().cpu().numpy() for t in (img, queries, logits)]
+    return outs, toks, cap(imgs), FA.flash_attention.launches - before
+
+
+def phase_tiny_captioner_parity():
+    """The tiny BLIP-2 captioner in fp32 on the GPU (kernel B) against the
+    CPU (plain twins): image tokens, queries and logits within
+    TINY_CAPTION_TOL, greedy tokens and captions equal; then a tiny
+    ``process(enable_auto_prompt=True)`` (a supplied condition map) on both,
+    prompts equal and images within TINY_DENOISE_IMAGE_LEVELS."""
+    from editanything_tpu_torch.models.blip2 import tiny_blip2_config
+    from editanything_tpu_torch.pipelines.bundle import (random_blip2,
+                                                         random_bundle)
+    from editanything_tpu_torch.pipelines.captioner import Captioner
+    from editanything_tpu_torch.pipelines.editor import EditAnythingEditor
+    from editanything_tpu_torch.text.tokenizer import tiny_gpt2_tokenizer
+    (cpu, cpu_toks, cpu_caps, _) = tiny_caption_run("cpu")
+    (gpu, gpu_toks, gpu_caps, launched) = tiny_caption_run("cuda")
+    errs = [float(np.abs(a - b).max()) for a, b in zip(gpu, cpu)]
+    print(f"[parity] tiny captioner fp32, CUDA (kernels) vs CPU (plain "
+          f"twins): image tokens {errs[0]:.3e}, queries {errs[1]:.3e}, logits "
+          f"{errs[2]:.3e} <= {TINY_CAPTION_TOL:g}; tokens "
+          f"{'equal' if np.array_equal(gpu_toks, cpu_toks) else 'DIFFER'} "
+          f"{gpu_toks.tolist()}; {launched} flash_attention launches")
+    check(max(errs) <= TINY_CAPTION_TOL, "tiny captioner fp32 parity")
+    check(np.array_equal(gpu_toks, cpu_toks) and gpu_caps == cpu_caps,
+          "tiny captioner tokens differ")
+    check(launched > 0, "the tiny captioner did not launch flash_attention")
+
+    args = dict(image=_checker_image(64, 64), mask=_square_mask(64, 16, 48),
+                prompt="a red cat", a_prompt="best", n_prompt="blurry",
+                condition_image=_checker_image(64, 64)[::-1], num_samples=2,
+                image_resolution=64, detect_resolution=64, ddim_steps=4,
+                scale=9.0, control_scale=0.5, alignment_ratio=0.75,
+                enable_auto_prompt=True,
+                noise=np.random.default_rng(7).standard_normal(
+                    (2, 8, 8, 4)).astype(np.float32))
+    outs = {}
+    for device in ("cpu", "cuda"):
+        b = random_bundle(tiny=True, device="cpu",
+                          generator=torch.Generator().manual_seed(1)).to(device)
+        cap = Captioner(random_blip2(tiny_blip2_config(), device="cpu",
+                                     seed=4).to(device),
+                        tiny_gpt2_tokenizer(), max_new_tokens=TINY_CAPTION_TOKENS)
+        _, images, _, prompt = EditAnythingEditor(b, captioner=cap).process(**args)
+        outs[device] = (np.stack(images), prompt)
+    img_err = int(np.abs(outs["cuda"][0].astype(np.int32)
+                         - outs["cpu"][0].astype(np.int32)).max())
+    print(f"[parity] tiny process(enable_auto_prompt=True), fp32, CUDA vs CPU: "
+          f"prompts {outs['cuda'][1]!r} / {outs['cpu'][1]!r}; images max diff "
+          f"{img_err} <= {TINY_DENOISE_IMAGE_LEVELS} levels")
+    check(outs["cuda"][1] == outs["cpu"][1]
+          and outs["cuda"][1].endswith(", a red cat, best"),
+          "tiny auto-prompt requests' prompts differ")
+    check(img_err <= TINY_DENOISE_IMAGE_LEVELS,
+          f"tiny auto-prompt request: images differ by {img_err}")
 
 
 def tiny_parity(kind: str, fused: bool):
@@ -2672,7 +2799,228 @@ def phase_main_path(bundle) -> dict:
           f"click returned {mask.shape} / {overlay.shape}")
     print(f"[main] process_image_click (512^2, encode + one click): "
           f"{t_click:.4f} s; mask covers {float((mask > 0).mean()):.3f}")
-    return launches
+    del editor.get_sam_control     # the untimed method again
+    return launches, editor
+
+
+def synthetic_gpt2_tokenizer(vocab_size: int):
+    """GPT-2/OPT's id layout (<s> 0, <pad> 1, </s> 2, <unk> 3, then the 256
+    byte symbols) filled to `vocab_size` with made-up space-led words
+    ("Ġw<id>", which decode to " w<id>") and no merges: no vocab.json or
+    merges.txt is in the repository, and the weights are random anyway."""
+    from editanything_tpu_torch.text.tokenizer import (GPT2Tokenizer,
+                                                       bytes_to_unicode)
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for sym in bytes_to_unicode().values():
+        vocab[sym] = len(vocab)
+    while len(vocab) < vocab_size:
+        vocab[f"\u0120w{len(vocab)}"] = len(vocab)
+    return GPT2Tokenizer(vocab, [])
+
+
+def captioner_flash_launches(cfg) -> int:
+    """Kernel B's launches per captioner call, whatever its batch: one per
+    vision layer, one per Q-Former layer (self) and one per cross-attention
+    layer; OPT's masked attention is the plain twin."""
+    return (cfg.vision_layers + cfg.qformer_layers
+            + len(range(0, cfg.qformer_layers, cfg.cross_attention_frequency)))
+
+
+def phase_captioner(editor) -> dict:
+    """Phase 4f: BLIP-2-OPT-2.7B at the published widths, random bf16
+    weights drawn on the card (seed 13), with a synthetic 50272-entry GPT-2
+    vocabulary, behind phase 5's editor (SD1.5 bundle, SAM ViT-H): the
+    vision tower and Q-Former in bf16 through kernel B and through its
+    twin, each against fp32; a warm-up and CAPTION_REQUESTS timed captions
+    of a 512^2 image; semantic_labels over the top SEMANTIC_TOP_K regions
+    of the AMG with its filters and box NMS open (and ``semantic`` itself
+    where PIL is installed); one ``process(enable_auto_prompt=True)`` and one
+    ``process(ref_auto_prompt=True)``, kernel B's launches equal to their
+    paths' prediction plus captioner_flash_launches per captioner call, the
+    caption in the returned prompt."""
+    import copy
+    import importlib.util
+    import types
+    from editanything_tpu_torch.core import flash_attention as FA
+    from editanything_tpu_torch.models import blip2 as TB
+    from editanything_tpu_torch.perception import amg as A
+    from editanything_tpu_torch.pipelines.bundle import random_blip2
+    from editanything_tpu_torch.pipelines.captioner import (Captioner,
+                                                            preprocess,
+                                                            semantic_labels)
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    cfg = TB.BLIP2Config()
+    model, t_build = _synced(random_blip2, cfg, device="cuda", dtype=bf16,
+                             seed=13)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[caption] BLIP-2-OPT-2.7B (ViT-g/14 1408 x 39, Q-Former 768 x 12, "
+          f"OPT 2560 x 32), bf16, random weights (seed 13): "
+          f"{n_params / 1e9:.3f} B parameters, "
+          f"{n_params * 2 / 2**30:.2f} GiB, drawn on the card in {t_build:.2f} s")
+    tok = synthetic_gpt2_tokenizer(cfg.vocab_size)
+    captioner = Captioner(model, tok, max_new_tokens=CAPTION_NEW_TOKENS)
+    per_call = captioner_flash_launches(cfg)
+    image = _checker_image(512, 512)
+
+    # the vision tower and the Q-Former: bf16 through B and through the
+    # twin, each against fp32 (the twin, TF32 off)
+    px = preprocess(image[None], cfg.image_size, "cuda")
+    ref = types.SimpleNamespace(cfg=cfg,
+                                vision_model=copy.deepcopy(model.vision_model).float(),
+                                qformer=copy.deepcopy(model.qformer).float())
+    with torch.inference_mode():
+        with plain_attention():
+            img32 = TB.vision_encoder(ref, px)
+            q32 = TB.qformer(ref, img32)
+        FA.flash_attention.launches = 0
+        img_k = TB.vision_encoder(model, px.to(bf16))
+        q_k = TB.qformer(model, img_k)
+        launched = FA.flash_attention.launches
+        with plain_attention():
+            img_t = TB.vision_encoder(model, px.to(bf16))
+            q_t = TB.qformer(model, img_t)
+    del ref
+    torch.cuda.empty_cache()
+    for name, k, t, want in (("image tokens", img_k, img_t, img32),
+                             ("queries", q_k, q_t, q32)):
+        ek, et = max_err(k, want), max_err(t, want)
+        print(f"[caption] bf16 {name} {tuple(want.shape)} against fp32: "
+              f"through kernel B {ek:.3e}, through its twin {et:.3e} (bound "
+              f"{TINY_BF16_RATIO:g}x the twin's; |fp32| <= "
+              f"{want.abs().max().item():.2f})")
+        check(ek <= TINY_BF16_RATIO * et, f"BLIP-2 bf16 {name}: {ek} > "
+              f"{TINY_BF16_RATIO} x {et}")
+    check(launched == per_call, f"vision + Q-Former launched kernel B "
+          f"{launched} times, expected {per_call}")
+    check(bool(torch.isfinite(q_k).all()), "non-finite queries")
+
+    # captions: a warm-up and timed ones, split once into their parts
+    editor.captioner = captioner
+    captions = []
+    get_text = editor.get_blip2_text
+
+    def recorded(img):
+        captions.append(get_text(img))
+        return captions[-1]
+    editor.get_blip2_text = recorded
+    torch.cuda.reset_peak_memory_stats()
+    _, t_warm = _synced(editor.get_blip2_text, image)
+    times = []
+    for _ in range(CAPTION_REQUESTS):
+        FA.flash_attention.launches = 0
+        _, seconds = _synced(editor.get_blip2_text, image)
+        times.append(seconds)
+        check(FA.flash_attention.launches == per_call,
+              f"a caption launched kernel B {FA.flash_attention.launches} "
+              f"times, expected {per_call}")
+    toks = captioner.tokens(image[None])
+    n_new = int((toks != cfg.eos_token_id).sum())
+    with torch.inference_mode():
+        qemb, t_enc = _synced(lambda: model.language_projection(
+            TB.qformer(model, TB.vision_encoder(model, px.to(bf16)))))
+        emb = torch.cat([qemb, model.language_model.embed_tokens(
+            torch.tensor([captioner.prompt_ids], device="cuda"))], dim=1)
+        (logits, _), t_prefill = _synced(
+            TB._prefill_caches, model, emb, emb.shape[1] + CAPTION_NEW_TOKENS)
+    check(bool(torch.isfinite(logits).all()), "non-finite prefill logits")
+    mean = sum(times) / len(times)
+    print(f"[caption] warm-up caption {t_warm:.3f} s; {len(times)} timed "
+          f"captions of a 512^2 image: {', '.join(f'{t:.3f}' for t in times)} "
+          f"s (mean {mean:.3f}); {n_new} of {CAPTION_NEW_TOKENS} new tokens "
+          f"before eos; split once: vision + Q-Former + projection "
+          f"{t_enc:.4f} s, prefill ({emb.shape[1]} tokens) {t_prefill:.4f} s, "
+          f"so the {CAPTION_NEW_TOKENS - 1} decode steps ~"
+          f"{mean - t_enc - t_prefill:.3f} s "
+          f"({(mean - t_enc - t_prefill) / (CAPTION_NEW_TOKENS - 1) * 1e3:.2f} "
+          f"ms a token); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel B "
+          f"{per_call} launches a caption; caption {captions[-1][:60]!r}...")
+    check(isinstance(captions[-1], str) and captions[-1],
+          "the caption is empty")
+
+    # region labels over the open-filter AMG's top regions: with random
+    # weights every candidate covers most of the image, so box NMS is off
+    # too (IoU threshold 1), or it would keep one mask
+    open_cfg = A.AMGConfig(pred_iou_thresh=-1e9, stability_score_thresh=-1.0,
+                           box_nms_thresh=1.0)
+    saved = editor.amg_cfg, editor._amg_encode, editor._amg_generate
+    editor.amg_cfg = open_cfg
+    editor._amg_encode, editor._amg_generate = A.build_amg(editor.sam[0],
+                                                           open_cfg)
+    _, logits, valid = editor.top_regions(image, SEMANTIC_TOP_K)
+    masks = logits > open_cfg.mask_threshold
+    areas = masks.reshape(len(masks), -1).sum(-1)
+    FA.flash_attention.launches = 0
+    labels, t_labels = _synced(semantic_labels, image, masks, valid, areas,
+                               captioner, top_k=SEMANTIC_TOP_K)
+    label_launches = FA.flash_attention.launches
+    print(f"[caption] semantic_labels over the open AMG's (filters and NMS) top "
+          f"{SEMANTIC_TOP_K} regions ({len(labels)} crops, one captioner "
+          f"call): {t_labels:.3f} s ({t_labels / mean:.2f}x one caption); "
+          f"kernel B {label_launches} launches; labels "
+          f"{[(i, lab[:20]) for i, lab in labels[:3]]}...")
+    check(len(labels) == SEMANTIC_TOP_K and all(lab for _, lab in labels),
+          f"semantic_labels returned {len(labels)} labels")
+    check(label_launches == per_call, f"semantic_labels launched kernel B "
+          f"{label_launches} times, expected {per_call}")
+    if importlib.util.find_spec("PIL") is None:
+        print("[caption] PIL is not installed here: semantic's overlay "
+              "cannot be drawn, so semantic itself does not run")
+    else:
+        (sem_labels, overlay), t_sem = _synced(
+            editor.semantic, image, top_k=SEMANTIC_TOP_K, detect_resolution=512)
+        print(f"[caption] semantic (AMG, {SEMANTIC_TOP_K} masks upscaled, "
+              f"labels, overlay): {t_sem:.3f} s; {len(sem_labels)} labels; "
+              f"overlay {overlay.shape} {overlay.dtype}")
+        check(len(sem_labels) == SEMANTIC_TOP_K and overlay.shape == (512, 512, 3)
+              and overlay.dtype == np.uint8, "semantic's output")
+    editor.amg_cfg, editor._amg_encode, editor._amg_generate = saved
+
+    # the two auto-prompt requests through process
+    sam_layers = editor.sam[0].depth
+    request = dict(image=image, mask=_square_mask(512, 128, 384),
+                   prompt="a red cat sitting on a sofa", a_prompt="best quality",
+                   n_prompt="blurry, low quality", num_samples=2,
+                   image_resolution=512, detect_resolution=512, ddim_steps=30,
+                   scale=9.0, control_scale=0.5)
+    results = {}
+    for tag, extra, expected in (
+            ("auto prompt", dict(enable_auto_prompt=True),
+             expected_flash_launches(editor.bundle.unet_cfg, 30,
+                                     sam_layers=sam_layers) + per_call),
+            ("reference auto prompt", dict(reference_args(),
+                                           ref_auto_prompt=True),
+             expected_flash_launches(editor.bundle.unet_cfg, 30, reference=True,
+                                     sam_layers=sam_layers) + per_call)):
+        returned = {}
+
+        def run(**kwargs):
+            out = editor.process(**kwargs)
+            returned["prompt"] = out[3]
+            return out
+        captions.clear()
+        _, counts = timed_request(
+            "caption", f"process({', '.join(k for k in extra if 'auto' in k)}"
+            f"=True) (SAM ID map, the caption, 512^2, 2 samples, 30 steps, "
+            f"CFG 9)", editor, run, **request, **extra, seed=700,
+            generator=torch.Generator("cuda").manual_seed(700))
+        print(f"[caption]   kernel B launches {counts['flash_attention']}, "
+              f"expected {expected} (the path's plus {per_call}); caption "
+              f"{captions[-1][:40]!r}... in the prompt: "
+              f"{captions[-1] in returned['prompt']}")
+        check(len(captions) == 1 and captions[0] in returned["prompt"],
+              f"{tag}: the caption is not in the returned prompt")
+        check(counts["flash_attention"] == expected,
+              f"{tag}: {counts['flash_attention']} kernel B launches, "
+              f"expected {expected}")
+        results[f"{tag} request"] = counts
+    del editor.get_blip2_text      # the method again
+    editor.captioner = None
+    del model, captioner, img32, q32, img_k, q_k, img_t, q_t, logits
+    torch.cuda.empty_cache()
+    print(f"[caption] phase 4f: {time.perf_counter() - t_phase:.1f} s")
+    return results
 
 
 def main() -> int:
@@ -2697,7 +3045,8 @@ def main() -> int:
     mode_launches.update(phase_reference_and_samplers(bundle))
     mode_launches.update(phase_high_resolution(bundle))
     mode_launches.update(phase_checkpoints(bundle))
-    launches = phase_main_path(bundle)
+    launches, editor = phase_main_path(bundle)
+    mode_launches.update(phase_captioner(editor))
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "editanything_tpu"))
     check(not foreign, f"the port loaded {foreign}")
@@ -2722,6 +3071,7 @@ def main() -> int:
                                     in mode_launches.items()}}
         if name == "flash_attention":
             row["safety_checker_shape"] = headline["flash_attention safety"]
+            row["blip2_shapes"] = headline["flash_attention blip2"]
         if name == "resnet_fused":
             row["composed_ms"] = headline["resnet_fused composed"]
             (row["cudnn_convs_ms"],

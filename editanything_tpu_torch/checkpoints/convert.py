@@ -12,6 +12,7 @@ needs arbitrary unpickling (the JAX package loads with
     official SAM (``sam_vit_*.pth``)  the port's names; load as they are
     HF CLIPTextModel                  ``clip_text_state_dict`` (:143-155)
     StableDiffusionSafetyChecker      ``safety_checker_state_dict`` (:157-174)
+    HF Blip2ForConditionalGeneration  ``blip2_state_dict`` (:232-301)
 
 The trees of the JAX package map per leaf (the inverse of its
 ``state_dict_to_tree``, :84-127):
@@ -29,6 +30,7 @@ here imports jax). Each port module loads the result with ``strict=True``.
 from __future__ import annotations
 
 import pickle
+import re
 import zipfile
 from typing import Dict, Mapping, Optional, Sequence
 
@@ -91,6 +93,73 @@ def safety_checker_state_dict(sd: Mapping) -> Dict:
     and the ``position_ids`` buffer dropped."""
     return {k.replace("vision_model.vision_model.", "vision_model.", 1): v
             for k, v in sd.items() if not k.endswith("position_ids")}
+
+
+# HF Blip2ForConditionalGeneration names -> models/blip2.py's, the JAX
+# package's _BLIP2_MAP (checkpoints/convert.py:232-270) with torch's leaves
+_BLIP2_MAP = [
+    (r"^vision_model\.embeddings\.patch_embedding\.", "vision_model.patch_embed."),
+    (r"^vision_model\.embeddings\.class_embedding$", "vision_model.cls_token"),
+    (r"^vision_model\.embeddings\.position_embedding$", "vision_model.pos_embed"),
+    (r"^vision_model\.encoder\.layers\.(\d+)\.layer_norm1\.", r"vision_model.layers.\1.norm1."),
+    (r"^vision_model\.encoder\.layers\.(\d+)\.layer_norm2\.", r"vision_model.layers.\1.norm2."),
+    (r"^vision_model\.encoder\.layers\.(\d+)\.self_attn\.projection\.", r"vision_model.layers.\1.attn.o."),
+    (r"^vision_model\.encoder\.layers\.(\d+)\.mlp\.fc1\.", r"vision_model.layers.\1.mlp.fc1."),
+    (r"^vision_model\.encoder\.layers\.(\d+)\.mlp\.fc2\.", r"vision_model.layers.\1.mlp.fc2."),
+    (r"^query_tokens$", "qformer.query_tokens"),
+    (r"^qformer\.encoder\.layer\.(\d+)\.(attention|crossattention)\.attention\.query\.", r"qformer.layers.\1.\2.q."),
+    (r"^qformer\.encoder\.layer\.(\d+)\.(attention|crossattention)\.attention\.key\.", r"qformer.layers.\1.\2.k."),
+    (r"^qformer\.encoder\.layer\.(\d+)\.(attention|crossattention)\.attention\.value\.", r"qformer.layers.\1.\2.v."),
+    (r"^qformer\.encoder\.layer\.(\d+)\.(attention|crossattention)\.output\.dense\.", r"qformer.layers.\1.\2.o."),
+    (r"^qformer\.encoder\.layer\.(\d+)\.(attention|crossattention)\.output\.LayerNorm\.", r"qformer.layers.\1.\2_norm."),
+    (r"^qformer\.encoder\.layer\.(\d+)\.intermediate_query\.dense\.", r"qformer.layers.\1.ffn.fc1."),
+    (r"^qformer\.encoder\.layer\.(\d+)\.output_query\.dense\.", r"qformer.layers.\1.ffn.fc2."),
+    (r"^qformer\.encoder\.layer\.(\d+)\.output_query\.LayerNorm\.", r"qformer.layers.\1.ffn_norm."),
+    (r"^language_model\.model\.decoder\.layers\.(\d+)\.self_attn\.(q|k|v)_proj\.", r"language_model.layers.\1.self_attn.\2."),
+    (r"^language_model\.model\.decoder\.layers\.(\d+)\.self_attn\.out_proj\.", r"language_model.layers.\1.self_attn.o."),
+    (r"^language_model\.model\.decoder\.", "language_model."),
+]
+_BLIP2_TIED_HEAD = "language_model.lm_head.weight"
+
+
+def blip2_state_dict(sd: Mapping) -> Dict:
+    """HF Blip2ForConditionalGeneration state dict -> ``models/blip2.py``'s.
+
+    The vision tower's fused ``qkv`` weight and bias are split into q/k/v
+    (the JAX package's ``blip2_to_tree``); files of the older layout, with
+    ``q_bias`` and ``v_bias`` beside a bias-free ``qkv``, give q and v those
+    biases and k a zero one, as HF computes them. OPT's ``lm_head`` is tied
+    to ``embed_tokens`` and dropped (an untied one raises: the port's head
+    is ``x @ embed_tokens.T``). Names already the port's pass through."""
+    out: Dict = {}
+    for k, v in sd.items():
+        if k == _BLIP2_TIED_HEAD:
+            continue
+        m = re.match(r"^vision_model\.encoder\.layers\.(\d+)\.self_attn\."
+                     r"(qkv\.weight|qkv\.bias|q_bias|v_bias)$", k)
+        if m:
+            layer, leaf = m.groups()
+            pre = f"vision_model.layers.{layer}.attn"
+            if leaf.startswith("qkv"):
+                for name, part in zip("qkv", v.chunk(3, dim=0)):
+                    out[f"{pre}.{name}.{leaf[4:]}"] = part
+            else:
+                out[f"{pre}.{leaf[0]}.bias"] = v
+                out[f"{pre}.k.bias"] = torch.zeros_like(v)
+            continue
+        for pat, rep in _BLIP2_MAP:
+            nk = re.sub(pat, rep, k)
+            if nk != k:
+                k = nk
+                break
+        out[k] = v
+    head = sd.get(_BLIP2_TIED_HEAD)
+    emb = out.get("language_model.embed_tokens.weight")
+    if head is not None and emb is not None and not torch.equal(
+            torch.as_tensor(head), torch.as_tensor(emb)):
+        raise ValueError("BLIP-2 state dict: lm_head is not tied to "
+                         "embed_tokens; the port's head is x @ embed_tokens.T")
+    return out
 
 
 def state_dict_from_tree(tree: Mapping, prefix: str = "", *,

@@ -1,1 +1,2 @@
-"""UNet, ControlNet, VAE and CLIP text tower as nn.Modules (diffusers names)."""
+"""UNet, ControlNet, VAE, CLIP text tower, SAM, the safety checker and
+BLIP-2 as nn.Modules."""

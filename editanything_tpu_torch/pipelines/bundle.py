@@ -3,10 +3,11 @@ ControlNets and an optional safety checker.
 
 Counterpart of ``editanything_tpu/pipelines/bundle.py``. Modules are built
 on the meta device and materialised once on their target device: drawn
-there (``random_bundle``, ``random_sam``; every random draw takes an
-explicit ``torch.Generator`` on that device), or filled from checkpoint
+there (``random_bundle``, ``random_sam``, ``random_blip2``; every random draw takes
+an explicit ``torch.Generator`` on that device), or filled from checkpoint
 files with ``load_state_dict(..., assign=True)`` (``load_bundle``,
-``load_sam``, checkpoints/ldm.py's ``load_ldm_bundle``), each tensor read
+``load_sam``, ``load_blip2``, checkpoints/ldm.py's ``load_ldm_bundle``),
+each tensor read
 straight onto the device and cast there, so a full-width file is read once.
 """
 
@@ -22,10 +23,11 @@ import torch
 import torch.nn as nn
 
 from editanything_tpu_torch.checkpoints.convert import (
-    clip_text_state_dict, load_torch_state_dict, safety_checker_state_dict,
-    state_dict_from_tree)
+    blip2_state_dict, clip_text_state_dict, load_torch_state_dict,
+    safety_checker_state_dict, state_dict_from_tree)
 from editanything_tpu_torch.core import layers as L
 from editanything_tpu_torch.models import config as C
+from editanything_tpu_torch.models.blip2 import BLIP2, BLIP2Config
 from editanything_tpu_torch.models.clip_text import CLIPTextModel
 from editanything_tpu_torch.models.controlnet import ControlNetModel
 from editanything_tpu_torch.models.safety import (CLIPVisionConfig,
@@ -249,6 +251,37 @@ def load_sam(path: str, cfg: SAMConfig, *, device="cuda",
     return module_from_state_dict(
         Sam, cfg, load_torch_state_dict(path, device=device, dtype=dtype),
         device=device, dtype=dtype)
+
+
+def load_blip2(path: str, cfg: BLIP2Config, *, device="cuda",
+               dtype: torch.dtype = torch.bfloat16) -> BLIP2:
+    """A BLIP-2 file, HF Blip2ForConditionalGeneration's layout or the
+    port's (``checkpoints/convert.py::blip2_state_dict``), -> ``BLIP2`` on
+    `device` (the GPU unless the caller asks otherwise) in `dtype`, every
+    parameter present and nothing left over."""
+    device = _target(device)
+    sd = blip2_state_dict(load_torch_state_dict(path, device=device,
+                                                dtype=dtype))
+    return module_from_state_dict(BLIP2, cfg, sd, device=device, dtype=dtype)
+
+
+@torch.no_grad()
+def random_blip2(cfg: BLIP2Config, *, device="cuda", dtype=torch.float32,
+                 seed: int = 0) -> BLIP2:
+    """A BLIP-2 with random weights drawn on `device` (the GPU unless the
+    caller asks otherwise) from a generator seeded with `seed` there, as
+    the JAX package's ``init_blip2`` draws them: linear and conv weights
+    uniform in +-1/sqrt(fan_in) with zero biases, norms at identity, the
+    CLS token, position embeddings, queries and both OPT embeddings
+    N(0, 0.02). At the published widths (3.74 B parameters) drawing on the
+    card takes a fraction of a second where the host would take tens."""
+    device = _target(device)
+    generator = torch.Generator(device).manual_seed(seed)
+    model = init_weights_(_empty(BLIP2, cfg, device, dtype), generator)
+    for t in (model.vision_model.cls_token, model.vision_model.pos_embed,
+              model.qformer.query_tokens):
+        t.normal_(0.0, 0.02, generator=generator)
+    return model
 
 
 def _merge_lora_specs(unet: nn.Module, text: nn.Module, lora_specs) -> list:

@@ -1,12 +1,14 @@
-"""EditAnythingEditor: SAM's automatic masks and click predictor in front
-of the dual-ControlNet inpaint edit.
+"""EditAnythingEditor: SAM's automatic masks and click predictor and the
+BLIP-2 captioner in front of the dual-ControlNet inpaint edit.
 
-Counterpart of ``editanything_tpu/pipelines/editor.py`` for the main path:
-``process`` builds the SAM ID condition map when none is given
-(editor.py:358-360) and runs the edit; ``process_image_click`` is the
-click-to-segment entry point. Images in and out are numpy HWC uint8. The
-SAM resize is torch (``resize_uint8_bilinear``) and ``resize_image`` is
-numpy, so no path needs PIL.
+Counterpart of ``editanything_tpu/pipelines/editor.py``: ``process`` builds
+the SAM ID condition map when none is given (editor.py:358-360) and runs
+the edit; ``process_image_click`` is the click-to-segment entry point;
+``semantic`` labels the largest SAM regions with the captioner and draws
+them (sam2semantic.py). Images in and out are numpy HWC uint8. The SAM
+resize is torch (``resize_uint8_bilinear``) and ``resize_image`` is numpy,
+so no path needs PIL but ``semantic``'s overlay, which draws its text with
+it (``apps/demos.py``).
 
 ``process`` also takes every sampler, DDIM's ``eta``, the per-pixel scale
 map of the SAM control (``use_scale_map``, derived from the mask unless
@@ -22,11 +24,13 @@ bundle's "tile" ControlNet), the condition-model swap
 ``condition_model_paths``, loaded into the "sam" ControlNet in place),
 textual inversion of the reference crop (``ref_textinv`` with
 ``ref_textinv_path``: the embedding loaded and its placeholder
-``textinv_token`` registered, or the crop staged for training),
+``textinv_token`` registered, or the crop staged for training), the auto
+prompts of an editor built with a captioner (``enable_auto_prompt``: the
+image's caption before the prompt; ``ref_auto_prompt``: the masked
+reference crop's caption appended to ``ref_prompt`` and ``a_prompt``),
 ``EA_SAVE_INPUTS=1`` capture and, beyond the JAX editor's arguments,
-``encoder_interval``. Not ported yet; set to anything but its default, each
-raises ``NotImplementedError`` naming its ROADMAP item: the auto prompts
-(Queue 1 item 7, the captioner).
+``encoder_interval`` and the noises. It takes every argument of the JAX
+editor's ``process``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from editanything_tpu_torch.checkpoints.convert import load_torch_state_dict
+from editanything_tpu_torch.apps.demos import semantic_overlay
 from editanything_tpu_torch.checkpoints.lora import (append_textual_inversion,
                                                      load_ti_file)
 from editanything_tpu_torch.models import sam as SAM
@@ -47,16 +52,11 @@ from editanything_tpu_torch.perception.amg import (AMGConfig, _grid_points,
                                                    build_amg, encode_id_map)
 from editanything_tpu_torch.perception.predictor import SamPredictor
 from editanything_tpu_torch.pipelines.bundle import ModelBundle
+from editanything_tpu_torch.pipelines.captioner import semantic_labels
 from editanything_tpu_torch.pipelines.edit import EditPipeline
-from editanything_tpu_torch.utils.image import (HWC3, resize_image,
-                                                resize_points, write_png)
-
-# process() arguments of the JAX editor that are not ported yet: their
-# defaults, and the ROADMAP item that ports each
-_NOT_PORTED = {
-    "enable_auto_prompt": (False, "Queue 1 item 7 (captioner)"),
-    "ref_auto_prompt": (False, "Queue 1 item 7 (captioner)"),
-}
+from editanything_tpu_torch.utils.image import (HWC3, resize_bilinear,
+                                                resize_image, resize_points,
+                                                write_png)
 
 
 def draw_click_overlay(image: np.ndarray, mask: np.ndarray,
@@ -77,11 +77,13 @@ def draw_click_overlay(image: np.ndarray, mask: np.ndarray,
 
 
 class EditAnythingEditor:
-    """``process``/``process_image_click`` over the port's pipelines."""
+    """``process``/``process_image_click``/``semantic`` over the port's
+    pipelines; `captioner` is a ``pipelines.captioner.Captioner`` or None
+    (no auto prompts: they caption nothing)."""
 
     def __init__(self, bundle: ModelBundle, *,
                  sam: Optional[Tuple[SAM.SAMConfig, SAM.Sam]] = None,
-                 amg_config: Optional[AMGConfig] = None,
+                 captioner=None, amg_config: Optional[AMGConfig] = None,
                  extra_inpaint: bool = True, tile_control: str = "tile"):
         self.bundle = bundle
         controls = (("sam", "inpaint") if extra_inpaint
@@ -93,6 +95,7 @@ class EditAnythingEditor:
         # the ControlNet of tile refinement; None: the bundle has none
         self.tile_control = (tile_control if tile_control in bundle.controlnets
                              else None)
+        self.captioner = captioner
         self.sam = sam
         self.amg_cfg = amg_config or AMGConfig()
         if sam is not None:
@@ -135,11 +138,19 @@ class EditAnythingEditor:
         self.current_condition_model = name_or_path
         return True
 
+    # -- captioning --------------------------------------------------------
+
+    def get_blip2_text(self, image: np.ndarray) -> str:
+        """The captioner's caption of one uint8 image; "" without a
+        captioner (editany_lora.py:512-520)."""
+        if self.captioner is None:
+            return ""
+        return self.captioner(image[None])[0]
+
     # -- SAM auto condition ----------------------------------------------
 
-    def get_sam_control(self, image: np.ndarray) -> np.ndarray:
-        """Automatic masks of the whole image -> uint8 (H, W, 3) R/G ID
-        condition map (editany_lora.py:522-525 and show_anns :426-449)."""
+    def _amg(self, image: np.ndarray) -> dict:
+        """The AMG's output slots for a uint8 image."""
         if self.sam is None:
             raise RuntimeError("no SAM weights in this editor")
         sam_cfg, sam = self.sam
@@ -147,11 +158,52 @@ class EditAnythingEditor:
         x, (nh, nw) = SAM.prepare_image(image, sam_cfg, dev)
         emb = self._amg_encode(sam, x.to(sam.mask_decoder.iou_token.weight.dtype))
         pts = torch.from_numpy(_grid_points(self.amg_cfg, nh, nw)).to(dev)
-        out = self._amg_generate(sam, emb, pts)
+        return self._amg_generate(sam, emb, pts)
+
+    def get_sam_control(self, image: np.ndarray) -> np.ndarray:
+        """Automatic masks of the whole image -> uint8 (H, W, 3) R/G ID
+        condition map (editany_lora.py:522-525 and show_anns :426-449)."""
+        out = self._amg(image)
         cond = encode_id_map(out["logits"], out["valid"],
                              out_hw=image.shape[:2],
                              mask_threshold=self.amg_cfg.mask_threshold)
         return cond.cpu().numpy()
+
+    # -- region-level semantics (sam2semantic.py) --------------------------
+
+    def semantic(self, image: np.ndarray, *, top_k: int = 10,
+                 detect_resolution: int = 1024):
+        """Region labels and their overlay (sam2semantic.py:73-146): the
+        AMG's top_k largest masks, upscaled to the image with
+        jax.image.resize "bilinear" semantics, each region's crop captioned
+        (one captioner call) and drawn. Returns ([(AMG slot, label)], uint8
+        (H, W, 3) overlay); the overlay needs PIL."""
+        if self.sam is None or self.captioner is None:
+            raise RuntimeError("semantic needs SAM weights and a captioner")
+        img = resize_image(HWC3(image.astype(np.uint8)), detect_resolution)
+        order, up, valid = self.top_regions(img, top_k)
+        masks_hr = up > self.amg_cfg.mask_threshold
+        labels_local = semantic_labels(
+            img, masks_hr, valid, masks_hr.reshape(len(order), -1).sum(-1),
+            self.captioner, top_k=top_k)
+        labels = [(int(order[i]), lab) for i, lab in labels_local]
+        overlay = semantic_overlay(img, up, valid, labels_local,
+                                   mask_threshold=self.amg_cfg.mask_threshold)
+        return labels, overlay
+
+    def top_regions(self, image: np.ndarray, top_k: int):
+        """The AMG's top_k largest masks of a uint8 image: (their slots,
+        their logits (k, H, W) upscaled to the image as jax.image.resize
+        "bilinear" does, their valid flags). Only these go to image
+        resolution: all slots would be hundreds of MB at 1024^2."""
+        out = self._amg(image)
+        valid = out["valid"].cpu().numpy()
+        # int32 as the JAX package's, so that argsort breaks ties alike
+        areas = out["areas"].cpu().numpy().astype(np.int32)
+        order = np.argsort(-np.where(valid, areas, -1))[:top_k]
+        logits = out["logits"].float().cpu()[torch.from_numpy(order)]
+        up = resize_bilinear(logits[:, None], image.shape[:2])[:, 0].numpy()
+        return order, up, valid[order]
 
     # -- interactive click segmentation ------------------------------------
 
@@ -227,6 +279,7 @@ class EditAnythingEditor:
     def process(self, *, image: np.ndarray, mask: Optional[np.ndarray],
                 prompt: str = "", a_prompt: str = "", n_prompt: str = "",
                 condition_image: Optional[np.ndarray] = None,
+                enable_auto_prompt: bool = False,
                 enable_all_generate: bool = False,
                 num_samples: int = 1, image_resolution: int = 512,
                 detect_resolution: int = 1024,
@@ -244,6 +297,7 @@ class EditAnythingEditor:
                 ref_image: Optional[np.ndarray] = None,
                 ref_mask: Optional[np.ndarray] = None,
                 ref_prompt: Optional[str] = None,
+                ref_auto_prompt: bool = False,
                 reference_attn: bool = True, reference_adain: bool = False,
                 attention_auto_weight: float = 1.0,
                 gn_auto_weight: float = 1.0, style_fidelity: float = 0.5,
@@ -255,7 +309,7 @@ class EditAnythingEditor:
                 ref_textinv_path: Optional[str] = None,
                 generator: Optional[torch.Generator] = None, noise=None,
                 mix_noise=None, step_noise=None, eta_noise=None,
-                tile_noise=None, **not_ported):
+                tile_noise=None):
         """Returns (results_tile, results, [condition_map, mask], prompt),
         the reference's process() contract (editany_lora.py:609-938).
         `use_scale_map` scales the SAM control per pixel by `scale_map`, or
@@ -264,8 +318,12 @@ class EditAnythingEditor:
         The reference-only arguments, `encoder_interval`, `generator` and
         the noises go to ``EditPipeline`` as it takes them.
         `condition_model` swaps the "sam" ControlNet first
-        (``set_condition_model``); with `ref_image`, `ref_textinv` loads the
-        embedding at `ref_textinv_path` or stages the masked crop. With
+        (``set_condition_model``). With a captioner, `enable_auto_prompt`
+        puts the caption of the image (resized to min(detect_resolution,
+        512)) before `prompt`, and with `ref_image`, `ref_auto_prompt`
+        appends the masked crop's caption to `ref_prompt` and `a_prompt`;
+        with `ref_image`, `ref_textinv` loads the embedding at
+        `ref_textinv_path` or stages the masked crop. With
         `enable_tile`, and a "tile" ControlNet in the bundle, the results
         go through ``EditPipeline.tile_refine`` at
         `refine_image_resolution` (UniPC, `ddim_steps`, CFG `scale`,
@@ -273,14 +331,6 @@ class EditAnythingEditor:
         H/8, W/8, 4)) or drawn from `generator` (default: seeded with
         `seed`); results_tile is empty otherwise. ``last_nonfinite`` counts
         both passes."""
-        for name, value in not_ported.items():
-            if name not in _NOT_PORTED:
-                raise TypeError(f"process() got an unexpected argument {name!r}")
-            default, item = _NOT_PORTED[name]
-            if not (value is default or (isinstance(value, (bool, int, float))
-                                         and value == default)):
-                raise NotImplementedError(f"{name}={value!r}: not ported yet "
-                                          f"(ROADMAP {item})")
         if condition_model is not None:
             self.set_condition_model(condition_model)
         if os.environ.get("EA_SAVE_INPUTS") == "1":
@@ -295,10 +345,18 @@ class EditAnythingEditor:
                     ddim_steps=ddim_steps, scale=scale,
                     control_scale=control_scale, seed=seed)}, f)
         image = HWC3(np.asarray(image, np.uint8))
-        if ref_image is not None and ref_textinv:
-            self._load_or_stage_textinv(
-                self._crop_masked_region(ref_image, ref_mask),
-                ref_textinv_path)
+        if enable_auto_prompt and self.captioner is not None:
+            caption = self.get_blip2_text(
+                resize_image(image, min(detect_resolution, 512)))
+            prompt = f"{caption}, {prompt}" if prompt else caption
+        if ref_image is not None and (ref_auto_prompt or ref_textinv):
+            crop = self._crop_masked_region(ref_image, ref_mask)
+            if ref_auto_prompt and self.captioner is not None:
+                caption = self.get_blip2_text(crop)
+                ref_prompt = (ref_prompt or "") + caption
+                a_prompt = a_prompt + caption
+            if ref_textinv:
+                self._load_or_stage_textinv(crop, ref_textinv_path)
         if condition_image is None:
             condition_image = self.get_sam_control(
                 resize_image(image, detect_resolution))

@@ -1,9 +1,11 @@
-"""CLIP byte-level BPE tokenizer, self-contained (no hub download).
+"""Byte-level BPE tokenizers, self-contained (no hub download): CLIP's for
+the text towers and GPT-2's for BLIP-2's OPT decoder.
 
-Counterpart of ``CLIPTokenizer`` and ``tiny_tokenizer`` in
-``editanything_tpu/text/tokenizer.py``, carried into the port so that the
-port, and a GPU machine that runs it, needs nothing of the JAX package.
-Same vocabulary layout (256 byte symbols, 256 byte+'</w>' symbols, the
+Counterpart of ``CLIPTokenizer``, ``GPT2Tokenizer``, ``tiny_tokenizer`` and
+``tiny_gpt2_tokenizer`` in ``editanything_tpu/text/tokenizer.py``, carried
+into the port so that the port, and a GPU machine that runs it, needs
+nothing of the JAX package. The CLIP tokenizer has the same vocabulary
+layout (256 byte symbols, 256 byte+'</w>' symbols, the
 merges in rank order, then <|startoftext|> and <|endoftext|>), the same
 text cleanup (html-unescape, whitespace collapse, lowercase) and the same
 split pattern, so both give the same ids for the same merges. The merges
@@ -190,3 +192,117 @@ def tiny_tokenizer(words: Sequence[str] = ("photo", "of", "a", "cat", "dog"),
             chars = [chars[0] + chars[1]] + chars[2:]
     return CLIPTokenizer(merges=list(dict.fromkeys(merges)),
                          context_length=context_length)
+
+
+class GPT2Tokenizer:
+    """Byte-level BPE as GPT-2 and OPT use it (BLIP-2's language side):
+    no '</w>' end-of-word marker (a leading space is part of the token, as
+    the byte symbol 'Ġ'), no lowercasing, GPT-2's split pattern. The
+    vocabulary maps token strings to ids (HF's ``vocab.json``); the merges
+    are in rank order (HF's ``merges.txt``). ``decode`` drops bos and pad."""
+
+    _PAT = re.compile(
+        r"'s|'t|'re|'ve|'m|'ll|'d| ?[^\W\d_]+| ?\d+| ?[^\s\w]+|\s+(?!\S)|\s+",
+        re.UNICODE)
+
+    def __init__(self, vocab: Dict[str, int], merges: Sequence[str],
+                 bos_token: str = "</s>", eos_token: str = "</s>",
+                 pad_token: str = "<pad>"):
+        self.byte_encoder = bytes_to_unicode()
+        self.encoder = dict(vocab)
+        self.decoder = {i: t for t, i in self.encoder.items()}
+        pairs = [tuple(m.split()) for m in merges if m.strip()]
+        self.bpe_ranks = {p: i for i, p in enumerate(pairs)}
+        self.cache: Dict[str, str] = {}
+        self.bos_id = self.encoder.get(bos_token, 2)
+        self.eos_id = self.encoder.get(eos_token, 2)
+        self.pad_id = self.encoder.get(pad_token, 1)
+
+    @classmethod
+    def from_files(cls, vocab_json: str, merges_txt: str,
+                   **kw) -> "GPT2Tokenizer":
+        """From HF's ``vocab.json`` and ``merges.txt`` (its ``#version``
+        header line skipped)."""
+        with open(vocab_json, encoding="utf-8") as f:
+            vocab = json.load(f)
+        with open(merges_txt, encoding="utf-8") as f:
+            lines = f.read().split("\n")
+        if lines and lines[0].startswith("#version"):
+            lines = lines[1:]
+        return cls(vocab, lines, **kw)
+
+    def bpe(self, token: str) -> str:
+        """Apply the merges to one pre-split token; space-joined symbols."""
+        if token in self.cache:
+            return self.cache[token]
+        word = tuple(token)
+        pairs = _get_pairs(word) if len(word) > 1 else set()
+        while pairs:
+            bigram = min(pairs,
+                         key=lambda p: self.bpe_ranks.get(p, float("inf")))
+            if bigram not in self.bpe_ranks:
+                break
+            first, second = bigram
+            new_word: List[str] = []
+            i = 0
+            while i < len(word):
+                try:
+                    j = word.index(first, i)
+                except ValueError:
+                    new_word.extend(word[i:])
+                    break
+                new_word.extend(word[i:j])
+                i = j
+                if (i < len(word) - 1 and word[i] == first
+                        and word[i + 1] == second):
+                    new_word.append(first + second)
+                    i += 2
+                else:
+                    new_word.append(word[i])
+                    i += 1
+            word = tuple(new_word)
+            if len(word) == 1:
+                break
+            pairs = _get_pairs(word)
+        out = " ".join(word)
+        self.cache[token] = out
+        return out
+
+    def encode(self, text: str) -> List[int]:
+        """Text -> token ids (no bos, no eos)."""
+        ids: List[int] = []
+        for token in self._PAT.findall(text):
+            token = "".join(self.byte_encoder[b]
+                            for b in token.encode("utf-8"))
+            ids.extend(self.encoder[t] for t in self.bpe(token).split(" "))
+        return ids
+
+    def decode(self, ids: Sequence[int]) -> str:
+        """Token ids -> text; bos and pad dropped, unknown ids skipped,
+        invalid UTF-8 replaced."""
+        byte_decoder = {v: k for k, v in self.byte_encoder.items()}
+        text = "".join(self.decoder.get(int(i), "") for i in ids
+                       if int(i) not in (self.bos_id, self.pad_id))
+        raw = bytearray(byte_decoder[c] for c in text if c in byte_decoder)
+        return raw.decode("utf-8", errors="replace")
+
+
+def tiny_gpt2_tokenizer(words: Sequence[str] = ("a", "cat", "dog", "photo")
+                        ) -> GPT2Tokenizer:
+    """Small GPT-2-style tokenizer for tests and random-weight runs: the 256
+    byte symbols (ids 3-258 after <pad> 1 and </s> 2) and merges that build
+    each word, plain and with its leading space 'Ġ', left to right."""
+    merges: List[str] = []
+    toks: List[str] = []
+    for w in words:
+        for prefix in ("", "Ġ"):
+            chars = list(prefix + w)
+            while len(chars) > 1:
+                merges.append(f"{chars[0]} {chars[1]}")
+                chars = [chars[0] + chars[1]] + chars[2:]
+                toks.append(chars[0])
+    vocab = {"<pad>": 1, "</s>": 2}
+    for t in list(bytes_to_unicode().values()) + toks:
+        if t not in vocab:
+            vocab[t] = len(vocab) + 1
+    return GPT2Tokenizer(vocab, list(dict.fromkeys(merges)))

@@ -5,9 +5,15 @@
 upscaling, BOX when downscaling), in numpy and to the level, so no path of
 the port needs PIL at any resolution; ``resize_pil`` takes any of those
 filters and BICUBIC at a given size (the safety checker's resize).
-``write_png`` writes an 8-bit RGB PNG with ``zlib`` alone. ``resize_nearest``/``resize_bilinear``
-reproduce ``jax.image.resize``: its "nearest" samples at half-pixel centres
-(torch's ``nearest-exact``), its "bilinear" antialiases when downscaling.
+``write_png`` writes an 8-bit RGB PNG with ``zlib`` alone.
+``resize_nearest``/``resize_bilinear`` reproduce ``jax.image.resize``: its
+"nearest" samples at half-pixel centres (torch's ``nearest-exact``), its
+"bilinear" antialiases when downscaling. ``resize_jax`` is
+``jax.image.resize``'s "bilinear" and "bicubic" (Keys' cubic at a = -0.5;
+torch's bicubic without antialiasing takes a = -0.75) with JAX's own fp32
+weight matrices, whose sample positions carry the fp32 rounding of
+in/out, where a value's exact side of an integer matters (a truncating
+uint8 cast).
 ``resize_uint8_bilinear`` stands in for PIL's BILINEAR resize of uint8
 images (within one level of it), so the SAM phase needs no PIL.
 """
@@ -186,6 +192,50 @@ def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
         return x
     return F.interpolate(x, size=tuple(size), mode="bilinear",
                          align_corners=False, antialias=True)
+
+
+def _keys_cubic(x):
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+_JAX_KERNELS = {"bilinear": lambda x: torch.clamp(1.0 - x.abs(), min=0.0),
+                "bicubic": _keys_cubic}
+
+
+def _jax_weight_mat(in_size: int, out_size: int, method: str,
+                    device) -> torch.Tensor:
+    """(in, out) fp32 weights of one axis, computed as
+    jax/_src/image/scale.py's ``compute_weight_mat`` computes them
+    (antialiased, no translation): sample positions from the fp32 in/out,
+    the kernel widened by it when downscaling, each column normalised."""
+    inv_scale = torch.tensor(in_size / out_size, dtype=torch.float32,
+                             device=device)
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample_f = ((torch.arange(out_size, dtype=torch.float32, device=device)
+                 + 0.5) * inv_scale - 0.5)
+    x = (sample_f[None, :] - torch.arange(in_size, dtype=torch.float32,
+                                          device=device)[:, None]).abs()
+    w = _JAX_KERNELS[method](x / kernel_scale)
+    total = w.sum(dim=0, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    w = torch.where(total.abs() > eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize_jax(x: torch.Tensor, size, method: str) -> torch.Tensor:
+    """(N, C, H, W) float -> (N, C, *size), jax.image.resize with `method`
+    "bilinear" or "bicubic": JAX's fp32 weights, the products summed in
+    fp64 and rounded to x's dtype once."""
+    h, w = x.shape[-2:]
+    if (h, w) == tuple(size):
+        return x
+    wh = _jax_weight_mat(h, size[0], method, x.device).double()
+    ww = _jax_weight_mat(w, size[1], method, x.device).double()
+    return torch.einsum("nchw,hH,wW->ncHW", x.double(), wh, ww).to(x.dtype)
 
 
 def resize_uint8_bilinear(img, size):

@@ -132,9 +132,9 @@ def test_resize_helpers_match_jax_image_resize(size):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port and running a one-step tiny edit
-    (which makes the lazy imports too) loads neither jax, nor triton, nor
-    any module of the JAX package."""
+    """Importing every module of the port, and running a one-step tiny edit
+    and a tiny caption (which make the lazy imports too), loads neither
+    jax, nor triton, nor any module of the JAX package."""
     code = ("import importlib, pkgutil, sys\n"
             "import numpy as np, torch\n"
             "import editanything_tpu_torch as pkg\n"
@@ -152,6 +152,13 @@ def test_port_imports_no_jax():
             "os.environ['EA_RESNET_FUSED'] = '1'\n"
             "fused = pipe(**args)\n"
             "assert np.abs(fused.astype(int) - out.astype(int)).max() <= 2\n"
+            "from editanything_tpu_torch.models.blip2 import tiny_blip2_config\n"
+            "from editanything_tpu_torch.pipelines.bundle import random_blip2\n"
+            "from editanything_tpu_torch.pipelines.captioner import Captioner\n"
+            "from editanything_tpu_torch.text.tokenizer import tiny_gpt2_tokenizer\n"
+            "cap = Captioner(random_blip2(tiny_blip2_config(), device='cpu'),\n"
+            "                tiny_gpt2_tokenizer(), max_new_tokens=2)\n"
+            "assert len(cap(img[None])) == 1\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'triton', 'editanything_tpu'))\n"
             "assert not bad, bad\n")

@@ -321,21 +321,20 @@ def test_editor_eta_scale_map_and_alpha_mixing_match_jax(sd15):
 
 
 def test_sampler_and_mode_refusals_name_their_items(sd15):
-    """What is still refused names its ROADMAP item: the reference image's
-    caption (item 7); an unknown mode is an error. (The tiled VAE and tile
-    refinement, item 5, are ported: tests/test_torch_hires.py,
-    tests/test_torch_pipelines_extra.py; textual inversion, item 6:
-    tests/test_torch_load_e2e.py.)"""
+    """An unknown inpaint mode is an error, and so is an argument that
+    ``process`` does not take. Nothing of the edit surface is refused any
+    more: the tiled VAE and tile refinement (item 5) are held in
+    tests/test_torch_hires.py and tests/test_torch_pipelines_extra.py,
+    textual inversion (item 6) in tests/test_torch_load_e2e.py, the auto
+    prompts (item 7) in tests/test_torch_editor.py."""
     tb, _ = sd15["blend"]
     args = dict(image=_checker_image(64, 64), mask=_mask(), prompt="x",
                 condition_image=_checker_image(64, 64), image_resolution=64,
                 num_steps=2)
     editor = EditAnythingEditor(tb)
-    request = dict(image=_checker_image(64, 64), mask=_mask(),
-                   condition_image=_checker_image(64, 64))
-    for name in ("ref_auto_prompt",):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            editor.process(**request, ref_image=_checker_image(64, 64),
-                           ref_mask=_mask(), **{name: True})
+    with pytest.raises(TypeError, match="not_an_argument"):
+        editor.process(image=_checker_image(64, 64), mask=_mask(),
+                       condition_image=_checker_image(64, 64),
+                       not_an_argument=True)
     with pytest.raises(ValueError, match="inpaint_mode"):
         EditPipeline(tb, inpaint_mode="paint")(**args)

@@ -138,6 +138,33 @@ def test_flash_attention_safety_checker_shape_matches_plain(cuda_device,
     assert err <= bound
 
 
+# BLIP-2's attention shapes (b, h, n, m, d): the EVA ViT-g/14 at 224^2, 16
+# heads of 88 (padded to 96 inside the kernel) over 257 tokens, for one
+# caption and for semantic's 10 crops; the Q-Former's 32 queries, 12 heads
+# of 64, over themselves and over the 257 image tokens
+BLIP2_ATTN_CASES = [(1, 16, 257, 257, 88), (10, 16, 257, 257, 88),
+                    (1, 12, 32, 32, 64), (10, 12, 32, 257, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,n,m,d", BLIP2_ATTN_CASES)
+def test_flash_attention_blip2_shapes_match_plain(cuda_device, dtype, b, h,
+                                                  n, m, d):
+    """Heads carved from the projections' (B, N, H * D) outputs, as the
+    model passes them: strided views, the last axis contiguous."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(7, b, 1, n, m, h * d, h * d))
+    q, k, v = (x.view(b, -1, h, d).transpose(1, 2) for x in (q, k, v))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    want = tfa.flash_attention_reference(q, k, v)
+    err, bound = _attention_err_and_bound(got, want)
+    assert err <= bound
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 6.25e-2)])
