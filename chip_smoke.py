@@ -17,9 +17,10 @@ non-zero, and nothing is caught:
      layers), SD2.1's (64-wide heads) and the reference read attention's
      (N queries over N + n keys, n the reference tokens inside
      ``ragged_ref_mask`` at each UNet level, no multiple of the key tile),
-     the safety checker's ViT-L/14 and BLIP-2's (the ViT-g/14's 16 heads of
+     the safety checker's ViT-L/14, BLIP-2's (the ViT-g/14's 16 heads of
      88 over 257 tokens, the Q-Former's 32 queries over themselves and over
-     the 257 image tokens, at batch 1 and 10), each also beside its bound
+     the 257 image tokens, at batch 1 and 10) and GroundingDINO's decoder
+     (900 queries, 8 heads of 32), each also beside its bound
      (least time for the same work) and PyTorch's
      scaled_dot_product_attention at the same shape and scale, with the
      SDPA backend that ran named at the UNet's 64x64 self and the VAE's
@@ -142,6 +143,24 @@ non-zero, and nothing is caught:
      ``process(ref_auto_prompt=True)``, each with its seconds, peak memory,
      kernel B's launches equal to its path's plus 57 per captioner call,
      and the caption in the returned prompt.
+  4g. text-grounded edits, after phase 4f on the same editor: the tiny
+     GroundingDINO and VLPart in fp32 on CUDA against the CPU; then
+     GroundingDINO SwinT-OGC and VLPart Swin-B at the published widths,
+     random bf16 weights drawn on the card, BERT's a synthetic
+     30522-entry WordPiece vocabulary, VLPart's the bundle's CLIP
+     tokenizer; each detects on a 512^2 and a 640 x 480 image (resized to
+     800 on the short side) with every part synchronised and timed
+     (GroundingDINO: host prepare, BERT, backbone, encoder, selection and
+     decoder, host; VLPart: host prepare, text, backbone + FPN, RPN,
+     cascade + NMS, host); GroundingDINO's decoder in bf16 through kernel
+     B and through its twin against fp32 on the same inputs (at most 2x
+     as far as the twin); ``prompt2mask`` at the reference UI's thresholds
+     and with them open; one ``TextGuidedEditPipeline`` request per
+     detector at the UI's defaults and one with GroundingDINO's
+     thresholds open, each with its seconds, peak memory and launches of
+     kernels B, D and C equal to the prediction (detection B 6 or 0, SAM's
+     encoder 32 where a box passes, D and C one call a box, then
+     ``process``'s 1834, 4 and 4).
 The last two lines are the kernels' JSON summary and the result line.
 Nothing here imports jax or the JAX package (editanything_tpu); the run
 checks that no module of either was loaded.
@@ -221,6 +240,9 @@ ATTN_SHAPES = [
     ("blip2 qformer self, 10 crops", 10, 12, 32, 32, 64, 64, None),
     ("blip2 qformer cross", 1, 12, 32, 257, 64, 64, None),
     ("blip2 qformer cross, 10 crops", 10, 12, 32, 257, 64, 64, None),
+    # GroundingDINO (phase 4g): the decoder's query self-attention, 900
+    # queries, 8 heads of 32, unmasked, 6 a detection
+    ("groundingdino decoder self", 1, 8, 900, 900, 32, 32, None),
 ]
 # kernel B at the high-resolution path's shapes (phase 4d), bf16 only (the
 # path's dtype): tile refinement at 1024^2, 2 samples under CFG (the UNet's
@@ -292,6 +314,23 @@ SDPA_BACKEND_SHAPES = ("unet 64x64 self", "vae mid 64x64")
 CAPTION_NEW_TOKENS = 50
 CAPTION_REQUESTS = 3
 SEMANTIC_TOP_K = 10
+# phase 4g: the captions and vocabularies of the text-grounded edits, the
+# images detected (a square one and a non-square one, each resized to 800
+# on the short side), and the reference UI's thresholds (GroundingDINO 0.25
+# with its top 2 boxes, sam2groundingdino_edit.py:130; VLPart 0.7,
+# sam2vlpart_edit.py:119-178)
+DINO_CAPTION = "dog head. sofa"
+VLPART_VOCABULARY = "dog head.dog nose"
+GROUNDING_IMAGES = ((512, 512), (480, 640))
+DINO_UI = dict(score_thresh=0.25, max_boxes=2)
+VLPART_UI = dict(score_thresh=0.7)
+# the same flows with every threshold open, so that boxes reach SAM
+GROUNDING_OPEN = dict(score_thresh=0.0, union_score_thresh=0.0, max_boxes=2)
+# tiny detectors in fp32, CUDA (kernel B, the GPU's sums) against the CPU
+# (plain twins): logits, scores and normalised boxes of magnitude ~0.1-10,
+# fp32 sums in other orders (TF32 off); boxes in pixels of a 64-96 px image
+TINY_DETECT_TOL = 1e-4
+TINY_DETECT_BOX_PX_TOL = 1e-2
 HEADLINE = {"flash_attention": "unet 64x64 self",
             "group_norm_silu": "vae decoder 512x512x256",
             "sam_twoway": "amg batch", "sam_upscale_hyper": "amg batch",
@@ -695,6 +734,11 @@ def phase_kernels():
                     "bound_by": by, "library_ms": sdpa}
             if dtype == torch.bfloat16 and label.startswith("blip2"):
                 headline.setdefault("flash_attention blip2", {})[label] = {
+                    "shape": [b, h, n, m, dqk, dv], "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain, "bound_ms": least,
+                    "bound_by": by, "library_ms": sdpa}
+            if dtype == torch.bfloat16 and label.startswith("groundingdino"):
+                headline["flash_attention groundingdino"] = {
                     "shape": [b, h, n, m, dqk, dv], "max_abs_err": err,
                     "ms": ms, "plain_ms": plain, "bound_ms": least,
                     "bound_by": by, "library_ms": sdpa}
@@ -3023,6 +3067,403 @@ def phase_captioner(editor) -> dict:
     return results
 
 
+def synthetic_bert_tokenizer(vocab_size: int):
+    """bert-base-uncased's id layout ([PAD] 0, [unused*], [UNK] 100, [CLS]
+    101, [SEP] 102, [MASK] 103, "." 1012, "?" 1029) with the letters and
+    their "##" forms, a few words, and made-up words ("w<id>") filling it to
+    `vocab_size`: no vocab.txt is in the repository, and the weights are
+    random anyway."""
+    from editanything_tpu_torch.text.tokenizer import BertTokenizer
+    vocab = {}
+
+    def add(tok):
+        vocab.setdefault(tok, len(vocab))
+
+    def fill(upto):
+        while len(vocab) < upto:
+            add(f"[unused{len(vocab)}]")
+    add("[PAD]")
+    fill(100)
+    for tok in ("[UNK]", "[CLS]", "[SEP]", "[MASK]"):
+        add(tok)
+    for ch in "abcdefghijklmnopqrstuvwxyz":
+        add(ch)
+        add("##" + ch)
+    fill(1012)
+    add(".")
+    fill(1029)
+    add("?")
+    for word in ("a", "the", "dog", "head", "nose", "sofa", "cat", "red"):
+        add(word)
+    while len(vocab) < vocab_size:
+        add(f"w{len(vocab)}")
+    return BertTokenizer(vocab)
+
+
+def tiny_detector_parity():
+    """The tiny GroundingDINO and VLPart in fp32, CUDA (kernel B where the
+    model reaches it) against the CPU (plain twins), the same weights: the
+    forward's logits and boxes and the detectors' boxes, scores and labels
+    within TINY_DETECT_TOL / TINY_DETECT_BOX_PX_TOL."""
+    import copy
+    from editanything_tpu_torch.core import flash_attention as FA
+    from editanything_tpu_torch.models import groundingdino as G
+    from editanything_tpu_torch.models import vlpart as V
+    from editanything_tpu_torch.pipelines.bundle import (random_groundingdino,
+                                                         random_vlpart)
+    from editanything_tpu_torch.text.tokenizer import (tiny_bert_tokenizer,
+                                                       tiny_tokenizer)
+    image = _checker_image(70, 96)
+    cpu = random_groundingdino(G.tiny_dino_config(), device="cpu", seed=3)
+    outs = {}
+    for device, model in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).cuda())):
+        det = G.GroundingDINODetector(model, tiny_bert_tokenizer(),
+                                      box_threshold=-1.0, short_side=64,
+                                      max_side=96)
+        inp = det.prepare(image, "a dog head. sofa")
+        FA.flash_attention.launches = 0
+        out = G.dino_forward(model, inp["pixels"], inp["text_ids"],
+                             inp["text_mask"], inp["text_self_mask"],
+                             inp["position_ids"])
+        launched = FA.flash_attention.launches
+        mask = inp["text_mask"][0].cpu().numpy()
+        outs[device] = (out["logits"].cpu().numpy()[:, mask],
+                        out["boxes"].cpu().numpy(),
+                        det(image, "a dog head. sofa"), launched)
+    (cl, cb, (cbox, cs, cp), _), (gl, gb, (gbox, gs, gp), launched) = \
+        outs["cpu"], outs["cuda"]
+    errs = (float(np.abs(gl - cl).max()), float(np.abs(gb - cb).max()),
+            float(np.abs(gs - cs).max()))
+    box_px = float(np.abs(gbox - cbox).max())
+    print(f"[grounding] tiny GroundingDINO fp32, CUDA vs CPU: logits "
+          f"{errs[0]:.3e}, boxes {errs[1]:.3e}, scores {errs[2]:.3e} <= "
+          f"{TINY_DETECT_TOL:g}; detector boxes {box_px:.3e} px <= "
+          f"{TINY_DETECT_BOX_PX_TOL:g}; phrases equal {gp == cp}; "
+          f"{launched} flash_attention launches")
+    check(max(errs) <= TINY_DETECT_TOL and box_px <= TINY_DETECT_BOX_PX_TOL
+          and gp == cp, "tiny GroundingDINO CUDA vs CPU")
+    check(launched == G.tiny_dino_config().dec_layers,
+          f"tiny GroundingDINO launched kernel B {launched} times")
+
+    cpu = random_vlpart(V.tiny_vlpart_config(), device="cpu", seed=3)
+    outs = {}
+    for device, model in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).cuda())):
+        det = V.VLPartDetector(model, tiny_tokenizer(context_length=16),
+                               short_side=72, max_side=120)
+        FA.flash_attention.launches = 0
+        outs[device] = det(image, VLPART_VOCABULARY) + (
+            FA.flash_attention.launches,)
+    (cbox, cs, cl, _), (gbox, gs, gl, launched) = outs["cpu"], outs["cuda"]
+    same = len(cs) == len(gs) and cl == gl
+    err = float(np.abs(gs - cs).max()) if same and len(cs) else 0.0
+    box_px = float(np.abs(gbox - cbox).max()) if same and len(cs) else 0.0
+    print(f"[grounding] tiny VLPart fp32, CUDA vs CPU: {len(gs)} / {len(cs)} "
+          f"detections, labels equal {cl == gl}; scores {err:.3e} <= "
+          f"{TINY_DETECT_TOL:g}; boxes {box_px:.3e} px <= "
+          f"{TINY_DETECT_BOX_PX_TOL:g}; {launched} flash_attention launches")
+    check(same and len(cs) > 0 and err <= TINY_DETECT_TOL
+          and box_px <= TINY_DETECT_BOX_PX_TOL, "tiny VLPart CUDA vs CPU")
+    check(launched == 0, f"VLPart launched kernel B {launched} times")
+
+
+def _counts():
+    return {c.__name__: c.launches for c in launch_counters()}
+
+
+def _zero_counts():
+    for c in launch_counters():
+        c.launches = 0
+
+
+def dino_detection(det, image, caption) -> dict:
+    """One GroundingDINO detection, each part synchronised: host prepare,
+    BERT, backbone + input_proj, the fusion encoder, query selection +
+    decoder, host post-processing -> seconds, peak memory, launches and the
+    outputs."""
+    from editanything_tpu_torch.models import groundingdino as G
+    model = det.model
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with torch.inference_mode():
+        inp, t_prep = _synced(det.prepare, image, caption)
+        txt, t_bert = _synced(G.text_features, model, inp["text_ids"],
+                              inp["text_self_mask"], inp["position_ids"])
+        srcs, t_bb = _synced(G.image_features, model, inp["pixels"])
+        (img, txt, shapes), t_enc = _synced(
+            G.encoder_forward, model, srcs, txt, inp["text_mask"],
+            inp["text_self_mask"], inp["position_ids"])
+        before = flash_launches()
+
+        def decode():
+            _, boxes = G.select_queries(model, img, txt, inp["text_mask"],
+                                        shapes)
+            return G.decoder_forward(model, img, txt, inp["text_mask"],
+                                     shapes, boxes)
+        out, t_dec = _synced(decode)
+        dec_launches = flash_launches() - before
+    (boxes, scores, phrases), t_post = _synced(det.postprocess, out,
+                                               inp["tokens"], inp["hw"])
+    total = t_prep + t_bert + t_bb + t_enc + t_dec + t_post
+    return dict(seconds=total, prep=t_prep, bert=t_bert, backbone=t_bb,
+                encoder=t_enc, decoder=t_dec, post=t_post, out=out,
+                boxes=boxes, scores=scores, phrases=phrases,
+                tokens=sum(h * w for h, w in shapes),
+                pixels=tuple(inp["pixels"].shape[-2:]),
+                peak=torch.cuda.max_memory_allocated(), launches=_counts(),
+                dec_launches=dec_launches)
+
+
+def flash_launches() -> int:
+    from editanything_tpu_torch.core import flash_attention as FA
+    return FA.flash_attention.launches
+
+
+def vlpart_detection(det, image, vocabulary) -> dict:
+    """One VLPart detection, each part synchronised: host prepare, the text
+    embeddings, backbone + FPN, the RPN, the cascade and NMS, and the
+    host's crop to the valid slab."""
+    from editanything_tpu_torch.models import vlpart as V
+    model = det.model
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with torch.inference_mode():
+        (px, scale), t_prep = _synced(det.prepare, image)
+        emb, t_text = _synced(V.encode_vocabulary, model, det.tokenizer,
+                              vocabulary)
+        hw = tuple(px.shape[-2:])
+        fpn, t_bb = _synced(V.backbone_forward, model, px)
+        (props, valid), t_rpn = _synced(V.rpn_proposals, model, fpn, hw)
+        out, t_heads = _synced(V.cascade_forward, model, fpn, props, valid,
+                               emb, hw)
+    host, t_post = _synced(lambda: {k: v.cpu().numpy() for k, v in out.items()})
+    keep = host["valid"]
+    return dict(seconds=t_prep + t_text + t_bb + t_rpn + t_heads + t_post,
+                prep=t_prep, text=t_text, backbone=t_bb, rpn=t_rpn,
+                heads=t_heads, post=t_post,
+                proposals=int(valid.sum()), detections=int(keep.sum()),
+                scores=host["scores"][keep], pixels=tuple(px.shape[-2:]),
+                peak=torch.cuda.max_memory_allocated(), launches=_counts())
+
+
+def boxes_to_sam(scores, flow: dict) -> int:
+    """How many of a detection's boxes prompt2mask hands SAM under `flow`:
+    those at or above score_thresh, the best max_boxes of them, those at or
+    above union_score_thresh (default 0.5)."""
+    scores = np.sort(np.asarray(scores))[::-1]
+    scores = scores[scores >= flow["score_thresh"]][:flow.get("max_boxes")]
+    return int((scores >= flow.get("union_score_thresh", 0.5)).sum())
+
+
+def grounding_masks(tag, detector, editor, image, text, flow, expected_b_det):
+    """prompt2mask with `flow`'s thresholds: seconds, the boxes that reach
+    SAM, launches against the prediction (kernel B: the detection's plus
+    SAM's encoder once where a box passes; D and C one call a box)."""
+    from editanything_tpu_torch.perception.grounding import prompt2mask
+    _, scores, _ = detector(image, text)
+    n_sam = boxes_to_sam(scores, flow)
+    sam_layers = editor.sam[0].depth
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    mask, seconds = _synced(prompt2mask, detector, editor.sam_predictor,
+                            image, text, **flow)
+    counts = _counts()
+    want = {"flash_attention": expected_b_det + (sam_layers if n_sam else 0),
+            "sam_twoway": n_sam, "sam_upscale_hyper": n_sam}
+    print(f"[grounding] {tag} prompt2mask({flow}): {seconds:.3f} s; "
+          f"{len(scores)} boxes from the detector, "
+          f"{int((np.asarray(scores) >= flow['score_thresh']).sum())} at or "
+          f"above {flow['score_thresh']}, {n_sam} to SAM; mask covers "
+          f"{float((mask[..., 0] > 0).mean()):.3f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"B {counts['flash_attention']}, D {counts['sam_twoway']}, C "
+          f"{counts['sam_upscale_hyper']} (predicted {want})")
+    check(mask.shape == image.shape and mask.dtype == np.uint8,
+          f"{tag}: mask {mask.shape} {mask.dtype}")
+    for name, n in want.items():
+        check(counts[name] == n, f"{tag} prompt2mask: {name} launched "
+              f"{counts[name]} times, predicted {n}")
+    return n_sam
+
+
+def phase_grounding(editor) -> dict:
+    """Phase 4g: text-grounded edits behind phase 5's editor (SD1.5 bundle,
+    SAM ViT-H). The tiny detectors CUDA vs CPU; GroundingDINO SwinT-OGC
+    and VLPart Swin-B at the published widths, random bf16 weights drawn
+    on the card (seeds 14 and 15), BERT's a synthetic 30522-entry WordPiece
+    vocabulary, VLPart's the bundle's CLIP tokenizer: each detects on
+    GROUNDING_IMAGES with every part timed; GroundingDINO's decoder in bf16
+    through kernel B and through its twin against fp32 on the same inputs;
+    prompt2mask at the UI's thresholds and with them open; one
+    ``TextGuidedEditPipeline`` request per detector at the UI's defaults
+    and one with GroundingDINO's thresholds open, each request's launches
+    of kernels B, D and C equal to the prediction."""
+    import copy
+    from editanything_tpu_torch.models import groundingdino as G
+    from editanything_tpu_torch.models import vlpart as V
+    from editanything_tpu_torch.perception.grounding import \
+        TextGuidedEditPipeline
+    from editanything_tpu_torch.pipelines.bundle import (random_groundingdino,
+                                                         random_vlpart)
+    t_phase = time.perf_counter()
+    tiny_detector_parity()
+    bf16 = torch.bfloat16
+    cfg = G.DINOConfig()
+    model, t_build = _synced(random_groundingdino, cfg, device="cuda",
+                             dtype=bf16, seed=14)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[grounding] GroundingDINO SwinT-OGC (Swin-T, BERT-base, 6 + 6 "
+          f"layers, 900 queries), bf16, random weights (seed 14): "
+          f"{n_params / 1e6:.1f} M parameters, drawn on the card in "
+          f"{t_build:.2f} s")
+    tok = synthetic_bert_tokenizer(cfg.bert.vocab_size)
+    check(tuple(tok.vocab[t] for t in ("[CLS]", "[SEP]", ".", "?"))
+          == G.BERT_SPECIAL_IDS, "synthetic BERT vocabulary's special ids")
+    # a fresh model's box MLPs end in a zero layer, so its decoder would
+    # leave every box where the selection put it: drawn small here, the
+    # refinement moves them and the bf16 check below sees the boxes
+    g = torch.Generator("cuda").manual_seed(14)
+    with torch.no_grad():
+        for mlp in (model.bbox_embed, model.transformer.enc_out_bbox_embed):
+            mlp.layers[-1].weight.normal_(0.0, 0.01, generator=g)
+    det = G.GroundingDINODetector(model, tok)
+    dino_b = cfg.dec_layers
+    results = {}
+    for hw in GROUNDING_IMAGES:
+        image = _checker_image(*hw)
+        dino_detection(det, image, DINO_CAPTION)      # warm-up at this size
+        r = dino_detection(det, image, DINO_CAPTION)
+        print(f"[grounding] GroundingDINO on {hw[0]}x{hw[1]} -> "
+              f"{r['pixels'][0]}x{r['pixels'][1]} ({r['tokens']} image tokens, "
+              f"{cfg.num_queries} queries): {r['seconds']:.4f} s = host "
+              f"prepare {r['prep']:.4f} + BERT {r['bert']:.4f} + backbone "
+              f"{r['backbone']:.4f} + encoder {r['encoder']:.4f} + selection "
+              f"and decoder {r['decoder']:.4f} + host post {r['post']:.4f}; "
+              f"{len(r['scores'])} boxes above {det.box_threshold}; peak "
+              f"memory {r['peak'] / 2**30:.2f} GiB; kernel B "
+              f"{r['launches']['flash_attention']} launches (decoder "
+              f"{r['dec_launches']}), predicted {dino_b}")
+        check(bool(torch.isfinite(r["out"]["boxes"]).all()),
+              "GroundingDINO boxes not finite")
+        real = r["out"]["logits"][:, torch.isfinite(r["out"]["logits"][0])]
+        check(real.shape[1] > 0 and bool(torch.isfinite(real).all()),
+              "GroundingDINO logits not finite at the caption's tokens")
+        check(r["launches"]["flash_attention"] == dino_b
+              and r["dec_launches"] == dino_b,
+              f"a detection launched kernel B {r['launches']['flash_attention']}"
+              f" times, predicted {dino_b}")
+
+    # the decoder in bf16 through B and through its twin, against fp32 on
+    # the same inputs (the fp32 encoder's outputs and selection, TF32 off)
+    ref = copy.deepcopy(model).float()
+    inp = det.prepare(_checker_image(512, 512), DINO_CAPTION)
+    tmask = inp["text_mask"]
+    with torch.inference_mode():
+        with plain_attention():
+            txt = G.text_features(ref, inp["text_ids"], inp["text_self_mask"],
+                                  inp["position_ids"])
+            img, txt, shapes = G.encoder_forward(
+                ref, G.image_features(ref, inp["pixels"]), txt, tmask,
+                inp["text_self_mask"], inp["position_ids"])
+            _, boxes = G.select_queries(ref, img, txt, tmask, shapes)
+            want = G.decoder_forward(ref, img, txt, tmask, shapes, boxes)
+        before = flash_launches()
+        got_k = G.decoder_forward(model, img.to(bf16), txt.to(bf16), tmask,
+                                  shapes, boxes)
+        dec_launches = flash_launches() - before
+        with plain_attention():
+            got_t = G.decoder_forward(model, img.to(bf16), txt.to(bf16), tmask,
+                                      shapes, boxes)
+    real = tmask[0]
+    for name, pick in (("logits", lambda o: o["logits"][:, real]),
+                       ("boxes", lambda o: o["boxes"])):
+        ek = max_err(pick(got_k), pick(want))
+        et = max_err(pick(got_t), pick(want))
+        print(f"[grounding] bf16 decoder {name} {tuple(pick(want).shape)} "
+              f"against fp32: through kernel B {ek:.3e}, through its twin "
+              f"{et:.3e} (bound {TINY_BF16_RATIO:g}x the twin's; |fp32| <= "
+              f"{pick(want).abs().max().item():.3f})")
+        check(ek <= TINY_BF16_RATIO * et, f"GroundingDINO bf16 decoder {name}: "
+              f"{ek} > {TINY_BF16_RATIO} x {et}")
+    check(dec_launches == dino_b, f"the decoder launched kernel B "
+          f"{dec_launches} times")
+    del ref, img, txt, want, got_k, got_t
+    torch.cuda.empty_cache()
+
+    # VLPart
+    vcfg = V.VLPartConfig()
+    vmodel, t_build = _synced(random_vlpart, vcfg, device="cuda", dtype=bf16,
+                              seed=15)
+    n_params = sum(p.numel() for p in vmodel.parameters())
+    print(f"[grounding] VLPart (Swin-B + FPN, RPN, 3-stage cascade, CLIP-RN50 "
+          f"text), bf16, random weights (seed 15): {n_params / 1e6:.1f} M "
+          f"parameters, drawn on the card in {t_build:.2f} s")
+    vdet = V.VLPartDetector(vmodel, editor.bundle.tokenizer)
+    for hw in GROUNDING_IMAGES:
+        image = _checker_image(*hw)
+        vlpart_detection(vdet, image, VLPART_VOCABULARY)   # warm-up
+        r = vlpart_detection(vdet, image, VLPART_VOCABULARY)
+        print(f"[grounding] VLPart on {hw[0]}x{hw[1]} -> {r['pixels'][0]}x"
+              f"{r['pixels'][1]}: {r['seconds']:.4f} s = host prepare "
+              f"{r['prep']:.4f} + text {r['text']:.4f} + detect (backbone + "
+              f"FPN {r['backbone']:.4f}, RPN {r['rpn']:.4f}, cascade + NMS "
+              f"{r['heads']:.4f}) + host {r['post']:.4f}; {r['proposals']} "
+              f"proposals, {r['detections']} detections (best "
+              f"{float(r['scores'].max()) if len(r['scores']) else 0:.3f}); "
+              f"peak memory {r['peak'] / 2**30:.2f} GiB; kernel B "
+              f"{r['launches']['flash_attention']} launches, predicted 0")
+        check(r["detections"] > 0 and bool(np.isfinite(r["scores"]).all()),
+              "VLPart found no finite detection")
+        check(r["launches"]["flash_attention"] == 0,
+              "VLPart launched kernel B")
+
+    # prompt2mask and the requests, at the UI's thresholds and open
+    image = _checker_image(512, 512)
+    dino_open = G.GroundingDINODetector(model, tok, box_threshold=0.0)
+    grounding_masks("GroundingDINO (UI)", det, editor, image, DINO_CAPTION,
+                    DINO_UI, dino_b)
+    grounding_masks("GroundingDINO (open)", dino_open, editor, image,
+                    DINO_CAPTION, GROUNDING_OPEN, dino_b)
+    grounding_masks("VLPart (UI)", vdet, editor, image, VLPART_VOCABULARY,
+                    VLPART_UI, 0)
+    grounding_masks("VLPart (open)", vdet, editor, image, VLPART_VOCABULARY,
+                    GROUNDING_OPEN, 0)
+    sam_layers = editor.sam[0].depth
+    request = dict(image=image, prompt="a red cat sitting on a sofa",
+                   a_prompt="best quality", n_prompt="blurry, low quality",
+                   num_samples=2, image_resolution=512, detect_resolution=512,
+                   ddim_steps=30, scale=9.0, control_scale=0.5)
+    edit_b = expected_flash_launches(editor.bundle.unet_cfg, 30,
+                                     sam_layers=sam_layers)
+    amg = editor.amg_cfg
+    amg_calls = -(-amg.num_points // amg.points_per_batch)
+    for tag, detector, text, flow, det_b in (
+            ("GroundingDINO (UI)", det, DINO_CAPTION, DINO_UI, dino_b),
+            ("GroundingDINO (open)", dino_open, DINO_CAPTION, GROUNDING_OPEN,
+             dino_b),
+            ("VLPart (UI)", vdet, VLPART_VOCABULARY, VLPART_UI, 0)):
+        n_sam = boxes_to_sam(detector(image, text)[1], flow)
+        pipe = TextGuidedEditPipeline(editor, detector, **flow)
+        _, counts = timed_request(
+            "grounding", f"TextGuidedEditPipeline, {tag}, "
+            f"{text!r} (detect, {n_sam} boxes to SAM, the SAM ID map, 512^2, 2 "
+            f"samples, 30 steps, CFG 9)", editor, pipe, mask_prompt=text,
+            **request, seed=800, generator=torch.Generator("cuda").manual_seed(800))
+        want = {"flash_attention": det_b + (sam_layers if n_sam else 0) + edit_b,
+                "sam_twoway": n_sam + amg_calls,
+                "sam_upscale_hyper": n_sam + amg_calls}
+        print(f"[grounding]   launches B {counts['flash_attention']}, D "
+              f"{counts['sam_twoway']}, C {counts['sam_upscale_hyper']}; "
+              f"predicted {want}")
+        for name, n in want.items():
+            check(counts[name] == n, f"{tag} request: {name} launched "
+                  f"{counts[name]} times, predicted {n}")
+        results[f"text edit {tag}"] = counts
+    del model, vmodel, det, vdet, dino_open
+    torch.cuda.empty_cache()
+    print(f"[grounding] phase 4g: {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the GPU port only",
@@ -3047,6 +3488,7 @@ def main() -> int:
     mode_launches.update(phase_checkpoints(bundle))
     launches, editor = phase_main_path(bundle)
     mode_launches.update(phase_captioner(editor))
+    mode_launches.update(phase_grounding(editor))
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "editanything_tpu"))
     check(not foreign, f"the port loaded {foreign}")
@@ -3072,6 +3514,8 @@ def main() -> int:
         if name == "flash_attention":
             row["safety_checker_shape"] = headline["flash_attention safety"]
             row["blip2_shapes"] = headline["flash_attention blip2"]
+            row["groundingdino_shape"] = headline[
+                "flash_attention groundingdino"]
         if name == "resnet_fused":
             row["composed_ms"] = headline["resnet_fused composed"]
             (row["cudnn_convs_ms"],

@@ -13,6 +13,11 @@ needs arbitrary unpickling (the JAX package loads with
     HF CLIPTextModel                  ``clip_text_state_dict`` (:143-155)
     StableDiffusionSafetyChecker      ``safety_checker_state_dict`` (:157-174)
     HF Blip2ForConditionalGeneration  ``blip2_state_dict`` (:232-301)
+    Swin backbones (timm/detectron2)  ``swin_state_dict`` (:214-229)
+    ``groundingdino_swint_ogc.pth``   ``dino_state_dict``
+                                      (checkpoints/detectors.py:146-195)
+    VLPart (detectron2, open_clip)    ``vlpart_state_dict``
+                                      (checkpoints/detectors.py:49-143)
 
 The trees of the JAX package map per leaf (the inverse of its
 ``state_dict_to_tree``, :84-127):
@@ -159,6 +164,133 @@ def blip2_state_dict(sd: Mapping) -> Dict:
             torch.as_tensor(head), torch.as_tensor(emb)):
         raise ValueError("BLIP-2 state dict: lm_head is not tied to "
                          "embed_tokens; the port's head is x @ embed_tokens.T")
+    return out
+
+
+_SWIN_DROP = ("relative_position_index", "attn_mask")
+
+
+def swin_state_dict(sd: Mapping) -> Dict:
+    """A Swin backbone's state dict (timm / detectron2 ``bottom_up``
+    naming) -> ``models/swin.py``'s: the ``backbone.bottom_up.`` or
+    ``backbone.`` prefix stripped, the ``relative_position_index`` and
+    ``attn_mask`` buffers and a classifier ``head.`` dropped, as the JAX
+    package's ``swin_to_tree`` does."""
+    out: Dict = {}
+    for k, v in sd.items():
+        k = k.replace("backbone.bottom_up.", "").replace("backbone.", "")
+        if k.endswith(_SWIN_DROP) or k.startswith("head."):
+            continue
+        out[k] = v
+    return out
+
+
+# aliases of the official GroundingDINO file that the port does not keep:
+# the decoder's view of the box MLP and its five tied copies, the unused
+# label encoder and BERT pooler, the position-embedding module (no
+# parameters), and buffers
+_DINO_SKIP = re.compile(
+    r"^(transformer\.decoder\.bbox_embed\.|bbox_embed\.[1-9]\d*\.|label_enc"
+    r"|bert\.pooler|bert\.embeddings\.(position|token_type)_ids$|backbone\.1\.)")
+
+
+def dino_state_dict(sd: Mapping) -> Dict:
+    """The official ``groundingdino_swint_ogc.pth`` layout ->
+    ``models/groundingdino.py``'s, the JAX package's ``dino_to_tree``
+    (checkpoints/detectors.py:146-195) without its splits: the port keeps
+    ``nn.MultiheadAttention``'s packed ``in_proj_weight`` and ``out_proj``,
+    ``input_proj.I.0``/``.1`` and BERT's HF names. ``module.`` is stripped;
+    ``backbone.0.`` becomes ``backbone.`` (through ``swin_state_dict``) and
+    the shared ``bbox_embed.0.`` becomes ``bbox_embed.``; the aliases of
+    ``_DINO_SKIP`` are dropped. Names already the port's pass through."""
+    out: Dict = {}
+    swin: Dict = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if _DINO_SKIP.match(k):
+            continue
+        if k.startswith("backbone."):
+            swin[re.sub(r"^backbone\.(0\.)?", "", k)] = v
+            continue
+        out[re.sub(r"^bbox_embed\.0\.", "bbox_embed.", k)] = v
+    out.update({f"backbone.{k}": v for k, v in swin_state_dict(swin).items()})
+    return out
+
+
+def _clip_rn50_text_state_dict(sd: Mapping) -> Dict:
+    """open_clip's text tower (``token_embedding``, ``positional_embedding``,
+    ``transformer.resblocks.N.{attn.in_proj_*, attn.out_proj, ln_1, ln_2,
+    mlp.c_fc, mlp.c_proj}``, ``ln_final``, ``text_projection``) ->
+    ``models/clip_text.py``'s names under ``clip.``, the fused ``in_proj``
+    split into q/k/v, as the JAX package's ``_clip_rn50_text_remap``."""
+    out: Dict = {}
+    fixed = {"token_embedding.weight": "clip.embeddings.token_embedding.weight",
+             "positional_embedding":
+                 "clip.embeddings.position_embedding.weight",
+             "ln_final.weight": "clip.final_layer_norm.weight",
+             "ln_final.bias": "clip.final_layer_norm.bias",
+             "text_projection": "text_projection"}
+    for k, v in sd.items():
+        if k in fixed:
+            out[fixed[k]] = v
+            continue
+        m = re.match(r"transformer\.resblocks\.(\d+)\.(.*)", k)
+        if not m:
+            continue
+        n, rest = m.groups()
+        pre = f"clip.encoder.layers.{n}."
+        if rest in ("attn.in_proj_weight", "attn.in_proj_bias"):
+            leaf = rest.rsplit("_", 1)[1]
+            for name, part in zip(("q_proj", "k_proj", "v_proj"),
+                                  v.chunk(3, dim=0)):
+                out[f"{pre}self_attn.{name}.{leaf}"] = part
+            continue
+        for a, b in (("attn.out_proj", "self_attn.out_proj"),
+                     ("ln_1", "layer_norm1"), ("ln_2", "layer_norm2"),
+                     ("mlp.c_fc", "mlp.fc1"), ("mlp.c_proj", "mlp.fc2")):
+            rest = rest.replace(a, b)
+        out[pre + rest] = v
+    return out
+
+
+def vlpart_state_dict(sd: Mapping) -> Dict:
+    """VLPart's detectron2 checkpoint (``swinbase_part_0a0000.pth``) ->
+    ``models/vlpart.py``'s, the JAX package's ``vlpart_to_tree``:
+    ``backbone.bottom_up.*`` the Swin, ``backbone.fpn_{lateral,output}{2..5}``
+    ``fpn.{lateral,output}.{0..3}``, the RPN head ``rpn.*``, the cascade's
+    ``box_head.K`` / ``box_predictor.K.{bbox_pred,cls_score.linear}``
+    ``roi_heads.K.*``, the open_clip text tower ``text_encoder.clip.*``
+    (``_clip_rn50_text_state_dict``). Other entries (the pixel mean and
+    std) are dropped; names already the port's pass through."""
+    out: Dict = {}
+    swin: Dict = {}
+    text: Dict = {}
+    for k, v in sd.items():
+        if k.startswith("backbone.bottom_up."):
+            swin[k] = v
+        elif k.startswith("backbone.fpn_"):
+            m = re.match(r"backbone\.fpn_(lateral|output)(\d)\.(weight|bias)$",
+                         k)
+            if m:
+                kind, lvl, leaf = m.groups()
+                out[f"fpn.{kind}.{int(lvl) - 2}.{leaf}"] = v
+        elif k.startswith("text_encoder.") and not k.startswith(
+                ("text_encoder.clip.", "text_encoder.text_projection")):
+            text[k[len("text_encoder."):]] = v
+        elif k.startswith(("proposal_generator.", "roi_heads.")):
+            nk = k.replace("proposal_generator.rpn_head.", "rpn.")
+            nk = re.sub(r"roi_heads\.box_head\.(\d)\.", r"roi_heads.\1.", nk)
+            nk = re.sub(r"roi_heads\.box_predictor\.(\d)\.cls_score\.linear\.",
+                        r"roi_heads.\1.cls_score.", nk)
+            nk = re.sub(r"roi_heads\.box_predictor\.(\d)\.bbox_pred\.",
+                        r"roi_heads.\1.bbox_pred.", nk)
+            out[nk] = v
+        elif k.startswith(("backbone.", "fpn.", "rpn.", "text_encoder.")):
+            out[k] = v
+    out.update({f"backbone.{k}": v for k, v in swin_state_dict(swin).items()})
+    out.update({f"text_encoder.{k}": v
+                for k, v in _clip_rn50_text_state_dict(text).items()})
     return out
 
 

@@ -1,2 +1,2 @@
-"""UNet, ControlNet, VAE, CLIP text tower, SAM, the safety checker and
-BLIP-2 as nn.Modules."""
+"""UNet, ControlNet, VAE, CLIP text tower, SAM, the safety checker,
+BLIP-2 and the detectors (Swin, GroundingDINO, VLPart) as nn.Modules."""

@@ -1,4 +1,5 @@
-"""SAM automatic mask generation and the click predictor."""
+"""SAM automatic mask generation, the click predictor and text-grounded
+masks (``grounding.py``: detector boxes as SAM box prompts)."""
 
 from editanything_tpu_torch.perception.amg import (
     AMGConfig,

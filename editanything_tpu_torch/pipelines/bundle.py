@@ -3,10 +3,13 @@ ControlNets and an optional safety checker.
 
 Counterpart of ``editanything_tpu/pipelines/bundle.py``. Modules are built
 on the meta device and materialised once on their target device: drawn
-there (``random_bundle``, ``random_sam``, ``random_blip2``; every random draw takes
+there (``random_bundle``, ``random_sam``, ``random_blip2``,
+``random_groundingdino``, ``random_vlpart``; every random draw takes
 an explicit ``torch.Generator`` on that device), or filled from checkpoint
 files with ``load_state_dict(..., assign=True)`` (``load_bundle``,
-``load_sam``, ``load_blip2``, checkpoints/ldm.py's ``load_ldm_bundle``),
+``load_sam``, ``load_blip2``, ``load_groundingdino``, ``load_vlpart``,
+checkpoints/ldm.py's
+``load_ldm_bundle``),
 each tensor read
 straight onto the device and cast there, so a full-width file is read once.
 """
@@ -23,18 +26,22 @@ import torch
 import torch.nn as nn
 
 from editanything_tpu_torch.checkpoints.convert import (
-    blip2_state_dict, clip_text_state_dict, load_torch_state_dict,
-    safety_checker_state_dict, state_dict_from_tree)
+    blip2_state_dict, clip_text_state_dict, dino_state_dict,
+    load_torch_state_dict, safety_checker_state_dict, state_dict_from_tree,
+    vlpart_state_dict)
 from editanything_tpu_torch.core import layers as L
 from editanything_tpu_torch.models import config as C
 from editanything_tpu_torch.models.blip2 import BLIP2, BLIP2Config
 from editanything_tpu_torch.models.clip_text import CLIPTextModel
 from editanything_tpu_torch.models.controlnet import ControlNetModel
+from editanything_tpu_torch.models.groundingdino import (DINOConfig,
+                                                         GroundingDINO)
 from editanything_tpu_torch.models.safety import (CLIPVisionConfig,
                                                   SafetyChecker,
                                                   SafetyCheckerModel)
 from editanything_tpu_torch.models.sam import LayerNorm2d, Sam, SAMConfig
 from editanything_tpu_torch.models.unet import UNet2DConditionModel
+from editanything_tpu_torch.models.vlpart import VLPart, VLPartConfig
 from editanything_tpu_torch.models.vae import AutoencoderKL
 from editanything_tpu_torch.samplers.schedule import make_schedule
 from editanything_tpu_torch.text.tokenizer import tiny_tokenizer
@@ -281,6 +288,117 @@ def random_blip2(cfg: BLIP2Config, *, device="cuda", dtype=torch.float32,
     for t in (model.vision_model.cls_token, model.vision_model.pos_embed,
               model.qformer.query_tokens):
         t.normal_(0.0, 0.02, generator=generator)
+    return model
+
+
+def load_groundingdino(path_or_state_dict, cfg: Optional[DINOConfig] = None,
+                       *, device="cuda", dtype: torch.dtype = torch.bfloat16
+                       ) -> GroundingDINO:
+    """An official GroundingDINO file (``groundingdino_swint_ogc.pth``: its
+    ``{"model": ...}`` is unwrapped) or state dict, in its layout or the
+    port's (``checkpoints/convert.py::dino_state_dict``), -> ``GroundingDINO``
+    (`cfg` default ``DINOConfig()``, SwinT-OGC) on `device` (the GPU unless
+    the caller asks otherwise) in `dtype`, every parameter present and
+    nothing left over."""
+    device = _target(device)
+    sd = path_or_state_dict
+    if not isinstance(sd, Mapping):
+        sd = load_torch_state_dict(sd, device=device, dtype=dtype)
+    return module_from_state_dict(GroundingDINO, cfg or DINOConfig(),
+                                  dino_state_dict(sd), device=device,
+                                  dtype=dtype)
+
+
+def _msdeform_grid_(m: nn.Module, heads: int, levels: int, points: int):
+    """MSDeformAttn's published initial offsets: zero weights, each head's
+    bias pointing its points 1..P steps out along one of `heads` directions
+    round the circle."""
+    theta = torch.arange(heads, dtype=torch.float32) * (2.0 * math.pi / heads)
+    grid = torch.stack([theta.cos(), theta.sin()], -1)
+    grid = grid / grid.abs().max(-1, keepdim=True)[0]
+    grid = grid.view(heads, 1, 1, 2).repeat(1, levels, points, 1)
+    grid *= torch.arange(1, points + 1, dtype=torch.float32).view(1, 1, -1, 1)
+    m.sampling_offsets.weight.zero_()
+    m.sampling_offsets.bias.copy_(grid.reshape(-1))
+    m.attention_weights.weight.zero_()
+    m.attention_weights.bias.zero_()
+
+
+@torch.no_grad()
+def random_groundingdino(cfg: DINOConfig, *, device="cuda",
+                         dtype=torch.float32, seed: int = 0) -> GroundingDINO:
+    """A GroundingDINO with random weights drawn on `device` (the GPU unless
+    the caller asks otherwise) from a generator seeded with `seed` there, as
+    the JAX package's ``init_dino`` draws them: linear and conv weights
+    uniform in +-1/sqrt(fan_in) (q, k and v of a packed projection each its
+    own) with zero biases, norms at identity, embeddings, the level
+    embedding and the relative-position tables N(0, 0.02), the fusion
+    gammas 1e-4, the box MLPs' last layers zero. The deformable attentions
+    take MSDeformAttn's published initial offsets, so their samples spread
+    round the reference as a fresh model's do."""
+    device = _target(device)
+    generator = torch.Generator(device).manual_seed(seed)
+    model = init_weights_(_empty(GroundingDINO, cfg, device, dtype),
+                          generator)
+    for m in model.modules():
+        if isinstance(m, nn.GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif hasattr(m, "in_proj_weight"):
+            d = m.in_proj_weight.shape[1]
+            m.in_proj_weight.uniform_(-d ** -0.5, d ** -0.5,
+                                      generator=generator)
+            m.in_proj_bias.zero_()
+        elif hasattr(m, "relative_position_bias_table"):
+            m.relative_position_bias_table.normal_(0.0, 0.02,
+                                                   generator=generator)
+        elif hasattr(m, "gamma_v"):
+            m.gamma_v.fill_(1e-4)
+            m.gamma_l.fill_(1e-4)
+        elif hasattr(m, "sampling_offsets"):
+            _msdeform_grid_(m, cfg.nheads, cfg.num_feature_levels,
+                            cfg.n_points)
+    tp = model.transformer
+    tp.level_embed.normal_(0.0, 0.02, generator=generator)
+    for mlp in (model.bbox_embed, tp.enc_out_bbox_embed):
+        mlp.layers[-1].weight.zero_()
+        mlp.layers[-1].bias.zero_()
+    return model
+
+
+def load_vlpart(path_or_state_dict, cfg: Optional[VLPartConfig] = None, *,
+                device="cuda", dtype: torch.dtype = torch.bfloat16) -> VLPart:
+    """VLPart's detectron2 file (``swinbase_part_0a0000.pth``) or state dict,
+    in its layout or the port's (``checkpoints/convert.py::
+    vlpart_state_dict``), -> ``VLPart`` (`cfg` default ``VLPartConfig()``,
+    Swin-B) on `device` (the GPU unless the caller asks otherwise) in
+    `dtype`, every parameter present and nothing left over."""
+    device = _target(device)
+    sd = path_or_state_dict
+    if not isinstance(sd, Mapping):
+        sd = load_torch_state_dict(sd, device=device, dtype=dtype)
+    return module_from_state_dict(VLPart, cfg or VLPartConfig(),
+                                  vlpart_state_dict(sd), device=device,
+                                  dtype=dtype)
+
+
+@torch.no_grad()
+def random_vlpart(cfg: VLPartConfig, *, device="cuda", dtype=torch.float32,
+                  seed: int = 0) -> VLPart:
+    """A VLPart with random weights drawn on `device` (the GPU unless the
+    caller asks otherwise) from a generator seeded with `seed` there, as
+    the JAX package's ``init_vlpart`` draws them: ``init_weights_`` for the
+    convs, linears, norms and the CLIP embeddings, the relative-position
+    tables N(0, 0.02), the text projection N(0, 1/width)."""
+    device = _target(device)
+    generator = torch.Generator(device).manual_seed(seed)
+    model = init_weights_(_empty(VLPart, cfg, device, dtype), generator)
+    for m in model.modules():
+        if hasattr(m, "relative_position_bias_table"):
+            m.relative_position_bias_table.normal_(0.0, 0.02,
+                                                   generator=generator)
+    model.text_encoder.text_projection.normal_(
+        0.0, cfg.text.hidden_size ** -0.5, generator=generator)
     return model
 
 

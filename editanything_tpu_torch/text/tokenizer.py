@@ -1,8 +1,10 @@
-"""Byte-level BPE tokenizers, self-contained (no hub download): CLIP's for
-the text towers and GPT-2's for BLIP-2's OPT decoder.
+"""Tokenizers, self-contained (no hub download): CLIP's byte-level BPE for
+the text towers, GPT-2's for BLIP-2's OPT decoder and BERT's WordPiece for
+GroundingDINO's text encoder.
 
-Counterpart of ``CLIPTokenizer``, ``GPT2Tokenizer``, ``tiny_tokenizer`` and
-``tiny_gpt2_tokenizer`` in ``editanything_tpu/text/tokenizer.py``, carried
+Counterpart of ``CLIPTokenizer``, ``GPT2Tokenizer``, ``BertTokenizer``,
+``tiny_tokenizer``, ``tiny_gpt2_tokenizer`` and ``tiny_bert_tokenizer`` in
+``editanything_tpu/text/tokenizer.py``, carried
 into the port so that the port, and a GPU machine that runs it, needs
 nothing of the JAX package. The CLIP tokenizer has the same vocabulary
 layout (256 byte symbols, 256 byte+'</w>' symbols, the
@@ -306,3 +308,85 @@ def tiny_gpt2_tokenizer(words: Sequence[str] = ("a", "cat", "dog", "photo")
         if t not in vocab:
             vocab[t] = len(vocab) + 1
     return GPT2Tokenizer(vocab, list(dict.fromkeys(merges)))
+
+
+class BertTokenizer:
+    """WordPiece tokenizer with bert-base-uncased's basic split (lowercase,
+    alphanumeric runs, every other non-space character alone), for
+    GroundingDINO's text side; the vocabulary is the user's ``vocab.txt``
+    (one token per line, the id its line number)."""
+
+    def __init__(self, vocab: Dict[str, int]):
+        self.vocab = dict(vocab)
+        self.ids_to_tokens = {i: t for t, i in self.vocab.items()}
+        self.cls_id = self.vocab.get("[CLS]", 101)
+        self.sep_id = self.vocab.get("[SEP]", 102)
+        self.pad_id = self.vocab.get("[PAD]", 0)
+        self.unk_id = self.vocab.get("[UNK]", 100)
+
+    @classmethod
+    def from_file(cls, vocab_txt: str) -> "BertTokenizer":
+        with open(vocab_txt, encoding="utf-8") as f:
+            toks = [line.rstrip("\n") for line in f]
+        return cls({t: i for i, t in enumerate(toks)})
+
+    @staticmethod
+    def _basic(text: str) -> List[str]:
+        out: List[str] = []
+        word = ""
+        for ch in text.lower():
+            if ch.isalnum():
+                word += ch
+                continue
+            if word:
+                out.append(word)
+                word = ""
+            if not ch.isspace():
+                out.append(ch)
+        if word:
+            out.append(word)
+        return out
+
+    def _wordpiece(self, word: str) -> List[str]:
+        """Greedy longest-prefix pieces, continuations marked "##"; a word
+        with an unmatched part is one [UNK]."""
+        if word in self.vocab:
+            return [word]
+        pieces, start = [], 0
+        while start < len(word):
+            for end in range(len(word), start, -1):
+                sub = word[start:end] if start == 0 else "##" + word[start:end]
+                if sub in self.vocab:
+                    break
+            else:
+                return ["[UNK]"]
+            pieces.append(sub)
+            start = end
+        return pieces
+
+    def tokenize(self, text: str) -> List[str]:
+        return [p for w in self._basic(text) for p in self._wordpiece(w)]
+
+    def encode_padded(self, text: str, max_len: int):
+        """-> (ids (max_len,) int32, mask (max_len,) bool, tokens): [CLS],
+        the text's tokens cut to max_len - 2, [SEP], then [PAD]s."""
+        import numpy as np
+        tokens = ["[CLS]"] + self.tokenize(text)[:max_len - 2] + ["[SEP]"]
+        ids = np.full((max_len,), self.pad_id, np.int32)
+        ids[:len(tokens)] = [self.vocab.get(t, self.unk_id) for t in tokens]
+        mask = np.zeros((max_len,), bool)
+        mask[:len(tokens)] = True
+        return ids, mask, tokens
+
+
+def tiny_bert_tokenizer(words: Sequence[str] = ("a", "dog", "head", "cat",
+                                                "sofa")) -> BertTokenizer:
+    """Small WordPiece vocabulary for tests: [PAD] 0, [UNK] 1, [CLS] 2,
+    [SEP] 3, "." 4, the words, then every letter and its "##" form."""
+    vocab = {"[PAD]": 0, "[UNK]": 1, "[CLS]": 2, "[SEP]": 3, ".": 4}
+    for w in words:
+        vocab.setdefault(w, len(vocab))
+    for ch in "abcdefghijklmnopqrstuvwxyz":
+        for p in (ch, "##" + ch):
+            vocab.setdefault(p, len(vocab))
+    return BertTokenizer(vocab)

@@ -4,7 +4,8 @@
 ``resize_image`` resamples as PIL's ``Image.resize`` does (LANCZOS when
 upscaling, BOX when downscaling), in numpy and to the level, so no path of
 the port needs PIL at any resolution; ``resize_pil`` takes any of those
-filters and BICUBIC at a given size (the safety checker's resize).
+filters, BICUBIC (the safety checker's resize) and BILINEAR (the
+detectors') at a given size.
 ``write_png`` writes an 8-bit RGB PNG with ``zlib`` alone.
 ``resize_nearest``/``resize_bilinear`` reproduce ``jax.image.resize``: its
 "nearest" samples at half-pixel centres (torch's ``nearest-exact``), its
@@ -69,6 +70,11 @@ def _box(x: float) -> float:
     return 1.0 if -0.5 < x <= 0.5 else 0.0
 
 
+def _triangle(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
 def _bicubic(x: float) -> float:
     a = -0.5
     x = abs(x)
@@ -80,7 +86,7 @@ def _bicubic(x: float) -> float:
 
 
 _FILTERS = {"lanczos": (_lanczos, 3.0), "box": (_box, 0.5),
-            "bicubic": (_bicubic, 2.0)}
+            "bilinear": (_triangle, 1.0), "bicubic": (_bicubic, 2.0)}
 
 
 def _resample_matrix(in_size: int, out_size: int, filt: str) -> np.ndarray:
@@ -137,9 +143,11 @@ def resize_image(input_image: np.ndarray, resolution: int) -> np.ndarray:
 def resize_pil(image: np.ndarray, size: Tuple[int, int],
                filt: str) -> np.ndarray:
     """uint8 (H, W[, C]) -> (h, w[, C]) as PIL's ``Image.resize((w, h),
-    filt)`` computes it (filt "lanczos", "box" or "bicubic"): horizontal
-    pass first, each pass clipped to uint8, a pass skipped where its side
-    keeps its size."""
+    filt)`` computes it (filt "lanczos", "box", "bilinear" or "bicubic"):
+    horizontal pass first, each pass clipped to uint8, a pass skipped where
+    its side keeps its size. Downscaling widens every filter's support by
+    the scale, as PIL does, so "bilinear" averages over the whole
+    footprint there (the detectors' resize)."""
     if image.dtype != np.uint8:
         raise TypeError(f"resize_pil takes uint8, got {image.dtype}")
     h, w = size

@@ -132,9 +132,10 @@ def test_resize_helpers_match_jax_image_resize(size):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, and running a one-step tiny edit
-    and a tiny caption (which make the lazy imports too), loads neither
-    jax, nor triton, nor any module of the JAX package."""
+    """Importing every module of the port, and running a one-step tiny edit,
+    a tiny caption and a tiny GroundingDINO detection (which make the lazy
+    imports too), loads neither jax, triton, PIL, torchvision nor any module
+    of the JAX package."""
     code = ("import importlib, pkgutil, sys\n"
             "import numpy as np, torch\n"
             "import editanything_tpu_torch as pkg\n"
@@ -159,8 +160,17 @@ def test_port_imports_no_jax():
             "cap = Captioner(random_blip2(tiny_blip2_config(), device='cpu'),\n"
             "                tiny_gpt2_tokenizer(), max_new_tokens=2)\n"
             "assert len(cap(img[None])) == 1\n"
+            "from editanything_tpu_torch.models import groundingdino as G\n"
+            "from editanything_tpu_torch.pipelines.bundle import random_groundingdino\n"
+            "from editanything_tpu_torch.text.tokenizer import tiny_bert_tokenizer\n"
+            "det = G.GroundingDINODetector(\n"
+            "    random_groundingdino(G.tiny_dino_config(), device='cpu'),\n"
+            "    tiny_bert_tokenizer(), box_threshold=-1.0, short_side=64)\n"
+            "boxes, scores, phrases = det(np.zeros((48, 80, 3), np.uint8), 'a dog')\n"
+            "assert boxes.shape == (12, 4) and len(phrases) == 12\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('jax', 'jaxlib', 'triton', 'editanything_tpu'))\n"
+            "             ('jax', 'jaxlib', 'triton', 'editanything_tpu', 'PIL',\n"
+            "              'torchvision'))\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -166,6 +166,93 @@ def test_flash_attention_blip2_shapes_match_plain(cuda_device, dtype, b, h,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_groundingdino_decoder_shape_matches_plain(cuda_device,
+                                                                   dtype):
+    """GroundingDINO's decoder self-attention: 900 queries, 8 heads of 32
+    carved from the (900, 256) projections, as the model passes them."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(8, 1, 1, 900, 900, 256, 256))
+    q, k, v = (x.view(1, 900, 8, 32).transpose(1, 2) for x in (q, k, v))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    want = tfa.flash_attention_reference(q, k, v)
+    err, bound = _attention_err_and_bound(got, want)
+    assert err <= bound
+
+
+# tiny detectors in fp32, CUDA against the CPU with the same weights:
+# logits, scores and normalised boxes of magnitude ~0.1-10 within 1e-4
+# (fp32 sums in other orders, TF32 off), boxes in pixels of a 64-96 px
+# image within 1e-2 (chip_smoke.py TINY_DETECT_TOL, TINY_DETECT_BOX_PX_TOL)
+DETECT_TOL = 1e-4
+DETECT_BOX_PX_TOL = 1e-2
+
+
+def _checker(h, w):
+    yy, xx = np.mgrid[0:h, 0:w]
+    return np.stack([xx * 255 // (w - 1), yy * 255 // (h - 1),
+                     ((xx // 8 + yy // 8) % 2) * 200], -1).astype(np.uint8)
+
+
+@pytest.mark.cuda
+def test_tiny_groundingdino_on_cuda_matches_cpu(cuda_device):
+    import copy
+    from editanything_tpu_torch.models import groundingdino as G
+    from editanything_tpu_torch.pipelines.bundle import random_groundingdino
+    from editanything_tpu_torch.text.tokenizer import tiny_bert_tokenizer
+    cfg = G.tiny_dino_config()
+    cpu = random_groundingdino(cfg, device="cpu", seed=3)
+    image = _checker(70, 96)
+    outs = []
+    for model in (cpu, copy.deepcopy(cpu).to(cuda_device)):
+        det = G.GroundingDINODetector(model, tiny_bert_tokenizer(),
+                                      box_threshold=-1.0, short_side=64,
+                                      max_side=96)
+        inp = det.prepare(image, "a dog head. sofa")
+        before = tfa.flash_attention.launches
+        out = G.dino_forward(model, inp["pixels"], inp["text_ids"],
+                             inp["text_mask"], inp["text_self_mask"],
+                             inp["position_ids"])
+        launched = tfa.flash_attention.launches - before
+        real = inp["text_mask"][0].cpu()
+        outs.append((out["logits"].cpu()[:, real], out["boxes"].cpu(),
+                     det(image, "a dog head. sofa"), launched))
+    (cl, cb, (cbox, cs, cp), c_launched), (gl, gb, (gbox, gs, gp),
+                                           g_launched) = outs
+    assert c_launched == 0 and g_launched == cfg.dec_layers
+    torch.testing.assert_close(gl, cl, atol=DETECT_TOL, rtol=0)
+    torch.testing.assert_close(gb, cb, atol=DETECT_TOL, rtol=0)
+    np.testing.assert_allclose(gs, cs, atol=DETECT_TOL, rtol=0)
+    np.testing.assert_allclose(gbox, cbox, atol=DETECT_BOX_PX_TOL, rtol=0)
+    assert gp == cp
+
+
+@pytest.mark.cuda
+def test_tiny_vlpart_on_cuda_matches_cpu(cuda_device):
+    import copy
+    from editanything_tpu_torch.models import vlpart as V
+    from editanything_tpu_torch.pipelines.bundle import random_vlpart
+    from editanything_tpu_torch.text.tokenizer import tiny_tokenizer
+    cpu = random_vlpart(V.tiny_vlpart_config(), device="cpu", seed=3)
+    image = _checker(70, 96)
+    outs = []
+    for model in (cpu, copy.deepcopy(cpu).to(cuda_device)):
+        det = V.VLPartDetector(model, tiny_tokenizer(context_length=16),
+                               short_side=72, max_side=120)
+        before = tfa.flash_attention.launches
+        outs.append(det(image, "dog head.dog nose")
+                    + (tfa.flash_attention.launches - before,))
+    (cbox, cs, cl, c_launched), (gbox, gs, gl, g_launched) = outs
+    assert c_launched == g_launched == 0
+    assert len(cs) > 0 and gl == cl
+    np.testing.assert_allclose(gs, cs, atol=DETECT_TOL, rtol=0)
+    np.testing.assert_allclose(gbox, cbox, atol=DETECT_BOX_PX_TOL, rtol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 6.25e-2)])
 @pytest.mark.parametrize("eps,apply_silu", GN_CASES)
