@@ -161,6 +161,27 @@ non-zero, and nothing is caught:
      kernels B, D and C equal to the prediction (detection B 6 or 0, SAM's
      encoder 32 where a box passes, D and C one call a box, then
      ``process``'s 1834, 4 and 4).
+  5t. training, last: ``train_staged_textinv`` for one step on the main
+     path's bf16 editor; kernels B, A and E through their autograd Functions
+     at UNet shapes in fp32 and bf16 (forward within the kernel's bound of
+     the twin, gradients the twin's own, the backward being a recompute
+     through it); B in fp32 at the training step's shapes (batch 2, no
+     CFG), each beside its bound at 67 TFLOP/s and SDPA in fp32; one step
+     of the tiny ControlNet in fp32 on the card against the CPU, with the
+     resnets composed and fused (every ControlNet tensor's gradient nonzero
+     on the card); ``train()`` at the published SD1.5 widths in fp32 with
+     random weights (zero convs drawn) on an SA-1B-layout folder the phase
+     writes (PNG targets, RLE JSONs): batch 2 at 512^2, remat "dots", EMA,
+     3 steps with DDIM grids at step 2 (2 steps), a checkpoint, an export,
+     then a resume to step 4; each iteration timed whole and in its parts
+     (batch fetch, preprocessor, step), each step's B and A launches
+     equal to the prediction (each attention and GroupNorm of the UNet and
+     ControlNet twice: forward and recompute), the peak memory, finite
+     losses, every ControlNet tensor changed and the UNet's checksum
+     unchanged; then the editor on that bundle stages a reference crop,
+     ``train_staged_textinv`` learns its 10 rows (3 steps, batch 1; only
+     they change) and ``process(ref_textinv=True, ref_textinv_path=...)``
+     runs on the learned file.
 The last two lines are the kernels' JSON summary and the result line.
 Nothing here imports jax or the JAX package (editanything_tpu); the run
 checks that no module of either was loaded.
@@ -670,7 +691,7 @@ def phase_device():
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     t0 = time.perf_counter()
-    build.build_cuda_libraries(CUDA_LIBRARIES)
+    build.build_libraries(CUDA_LIBRARIES)
     flash_attention.build()
     kernels.build()
     kernels.build_sam()
@@ -3464,6 +3485,510 @@ def phase_grounding(editor) -> dict:
     return results
 
 
+# phase 5t: training. B's fp32 kernel at the shapes a ControlNet training
+# step at 512^2 with batch 2 gives it (no CFG): (label, B, H, N, M, Dqk, Dv),
+# the UNet's and ControlNet's self and cross attention per level and the
+# preprocessor's VAE encoder mid attention
+TRAIN_ATTN_SHAPES = [
+    ("train unet 64x64 self", 2, 8, 4096, 4096, 40, 40),
+    ("train unet 64x64 cross", 2, 8, 4096, 77, 40, 40),
+    ("train unet 32x32 self", 2, 8, 1024, 1024, 80, 80),
+    ("train unet 16x16 self", 2, 8, 256, 256, 160, 160),
+    ("train unet 8x8 self", 2, 8, 64, 64, 160, 160),
+    ("train vae encoder mid 64x64", 2, 1, 4096, 4096, 512, 512),
+]
+# the gradient checks' shapes: B at UNet levels (batch 2), A at UNet
+# activations (eps 1e-5 with SiLU, the transformer norm's 1e-6 without),
+# E at the UNet's 64x64 320->320 and 32x32 320->640 blocks
+TRAIN_GRAD_ATTN = [(2, 8, 4096, 4096, 40, 40), (2, 8, 1024, 77, 80, 80),
+                   (2, 8, 256, 256, 160, 160)]
+TRAIN_GRAD_GN = [((2, 320, 64, 64), 1e-5, True), ((2, 640, 32, 32), 1e-6,
+                                                   False)]
+TRAIN_GRAD_RESNET = [(2, 320, 320, 64), (2, 320, 640, 32)]
+# gradients of the Functions against the twins' autograd on the same
+# inputs, cuDNN deterministic: the backward is the twin's, so the two
+# should agree to the bit; fp32 and bf16 alike, relative to the largest
+# gradient
+TRAIN_GRAD_REL = 1e-5
+# the tiny ControlNet step, fp32 CUDA against the CPU: the loss 1e-5
+# relative, each gradient 1e-4 of its tensor's largest (fp32 through two
+# deep stacks and their backward, summed in other orders, TF32 off)
+TINY_TRAIN_LOSS_RTOL = 1e-5
+TINY_TRAIN_GRAD_REL = 1e-4
+# train() at full width: an SA-1B-layout folder of TRAIN_IMAGES PNGs of
+# TRAIN_IMAGE_HW with TRAIN_MASKS RLE masks each (three batches of 2)
+TRAIN_IMAGES = 6
+TRAIN_IMAGE_HW = (768, 1024)
+TRAIN_MASKS = 40
+
+
+def _grad_check(fn, twin, inputs, seed):
+    """The Function's output, gradients, and the twin's, for one cotangent;
+    returns (forward error, largest gradient error over its scale)."""
+    results = []
+    for f in (fn, twin):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        out = f(*leaves)
+        check(out.grad_fn is not None, "no grad_fn on a kernel's output")
+        g = torch.randn(out.shape, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(seed)).to(out.dtype)
+        # cuDNN's default conv backward sums in an order that changes from
+        # call to call; its deterministic algorithms make two runs of the
+        # same backward comparable
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                        allow_tf32=False):
+            results.append((out.detach(),
+                            torch.autograd.grad(out, leaves, g)))
+    (out, got), (ref, want) = results
+    worst = max(max_err(a, b) / max(b.float().abs().max().item(), 1e-30)
+                for a, b in zip(got, want))
+    return out, ref, worst
+
+
+def train_kernel_gradients():
+    """B, A and E through their Functions on the card, fp32 and bf16, at
+    UNet shapes: outputs within the kernels' bounds of the twins,
+    gradients the twins' own."""
+    from editanything_tpu_torch.core import flash_attention as FA
+    from editanything_tpu_torch.core import kernels as K
+    g = torch.Generator("cuda").manual_seed(21)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for b, h, n, m, dqk, dv in TRAIN_GRAD_ATTN:
+            q, k, v = (torch.randn(b, h, x, d, generator=g, device="cuda"
+                                   ).to(dtype)
+                       for x, d in ((n, dqk), (m, dqk), (m, dv)))
+            out, ref, worst = _grad_check(FA.flash_attention,
+                                          FA.flash_attention_reference,
+                                          (q, k, v), 1)
+            err, bound = max_err(out, ref), attention_bound(dtype, ref)
+            print(f"[train] flash_attention {tag} {(b, h, n, m, dqk, dv)}: "
+                  f"forward {err:.3e} <= {bound:.3e}, gradients dq/dk/dv "
+                  f"within {worst:.3e} of the twin's (<= {TRAIN_GRAD_REL})")
+            check(err <= bound and worst <= TRAIN_GRAD_REL,
+                  f"flash_attention {tag} gradients {(b, h, n, m, dqk, dv)}")
+        for shape, eps, silu in TRAIN_GRAD_GN:
+            x, w, bias = group_norm_inputs(g, dtype, shape)
+            out, ref, worst = _grad_check(
+                lambda x, w, b: K.group_norm_silu(x, w, b, eps=eps,
+                                                  apply_silu=silu),
+                lambda x, w, b: K.group_norm_silu_reference(
+                    x, w, b, eps=eps, apply_silu=silu), (x, w, bias), 2)
+            err = max_err(out, ref)
+            print(f"[train] group_norm_silu {tag} {shape} eps={eps:g} "
+                  f"silu={silu}: forward {err:.3e} <= {GN_BOUNDS[dtype]:g}, "
+                  f"gradients dx/dscale/dbias within {worst:.3e}")
+            check(err <= GN_BOUNDS[dtype] and worst <= TRAIN_GRAD_REL,
+                  f"group_norm_silu {tag} gradients {shape}")
+        for n, cin, cout, side in TRAIN_GRAD_RESNET:
+            x, args = resnet_inputs(g, dtype, n, cin, cout, True, side)
+            present = [i for i, a in enumerate(args) if a is not None]
+
+            def spread(rest):
+                full = [None] * len(args)
+                for i, t in zip(present, rest):
+                    full[i] = t
+                return full
+            out, ref, worst = _grad_check(
+                lambda x, *r: K.resnet_fused(x, *spread(r)),
+                lambda x, *r: K.resnet_fused_reference(x, *spread(r)),
+                [x] + [args[i] for i in present], 3)
+            err = max_err(out, ref)
+            bound = (RESNET_BF16_REL_BOUND * ref.float().abs().max().item()
+                     if dtype == torch.bfloat16 else RESNET_F32_BOUND)
+            print(f"[train] resnet_fused {tag} {n}x{cin}->{cout} at "
+                  f"{side}x{side}: forward {err:.3e} <= {bound:.3e}, "
+                  f"gradients of x, trow and 10 parameters within "
+                  f"{worst:.3e}")
+            check(err <= bound and worst <= TRAIN_GRAD_REL,
+                  f"resnet_fused {tag} gradients {(n, cin, cout, side)}")
+        torch.cuda.empty_cache()
+
+
+def train_attention_rows() -> dict:
+    """Kernel B in fp32 at the training step's shapes: error against the
+    twin, kernel, twin and SDPA fp32 times, and the bound at 67 TFLOP/s."""
+    from editanything_tpu_torch.core import flash_attention as FA
+    g = torch.Generator("cuda").manual_seed(22)
+    rows = {}
+    for label, b, h, n, m, dqk, dv in TRAIN_ATTN_SHAPES:
+        q, k, v = (torch.randn(b, h, x, d, generator=g, device="cuda")
+                   for x, d in ((n, dqk), (m, dqk), (m, dv)))
+        err = max_err(FA.flash_attention(q, k, v),
+                      FA.flash_attention_reference(q, k, v))
+        ms = cuda_ms(lambda: FA.flash_attention(q, k, v), 3)
+        plain = cuda_ms(lambda: FA.flash_attention_reference(q, k, v), 3)
+        sdpa = cuda_ms(lambda: sdpa_call(q, k, v, dqk ** -0.5), 3)
+        least, by = bound_ms(*attention_work(b, h, n, m, dqk, dv, 4),
+                             PEAK_FP32)
+        print(f"[train] flash_attention fp32 {label} {(b, h, n, m, dqk, dv)}: "
+              f"max_abs_err {err:.3e} <= {ATTN_F32_BOUND:g}; kernel {ms:.4f} "
+              f"ms, plain {plain:.4f} ms, bound {least:.4f} ms ({by}, 67 "
+              f"TFLOP/s fp32), SDPA fp32 {sdpa:.4f} ms")
+        check(err <= ATTN_F32_BOUND, f"flash_attention fp32 {label}: {err}")
+        rows[label] = {"shape": [b, h, n, m, dqk, dv], "dtype": "fp32",
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                       "bound_ms": least, "bound_by": by, "library_ms": sdpa}
+        del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tiny_train_parity(fused: bool):
+    """One step of the tiny ControlNet (remat "dots") in fp32 on the card
+    (the kernels forward, the twins backward) against the CPU (twins
+    only), the zero convs drawn: every ControlNet tensor's gradient nonzero
+    on the card and within TINY_TRAIN_GRAD_REL of the CPU's."""
+    from editanything_tpu_torch.pipelines.bundle import random_bundle
+    from editanything_tpu_torch.samplers.schedule import make_schedule
+    from editanything_tpu_torch.train import controlnet_train as T
+    g = torch.Generator().manual_seed(0)
+    batch = {"latents": torch.randn(2, 4, 8, 8, generator=g),
+             "hint": torch.rand(2, 3, 64, 64, generator=g),
+             "context": torch.randn(2, 8, 32, generator=g)}
+    t, noise = torch.tensor([17, 640]), torch.randn(2, 4, 8, 8, generator=g)
+    losses, grads, counts = [], [], None
+    with_fused_resnets(fused)
+    for device in ("cpu", "cuda"):
+        tb = random_bundle(tiny=True, device="cpu", controlnet_names=("sam",),
+                           generator=torch.Generator().manual_seed(3))
+        tb.to(device)
+        tb.unet.requires_grad_(False)
+        cn = tb.controlnets["sam"][1]
+        state = T.init_train_state(cn, lambda p: torch.optim.SGD(p, lr=1.0))
+        _zero_counts()
+        _, m = T.make_train_step(make_schedule(), remat=True)(
+            state, tb.unet, {k: v.to(device) for k, v in batch.items()},
+            t=t, noise=noise)
+        counts = _counts()
+        losses.append(float(m["loss"]))
+        grads.append({k: p.grad.cpu() for k, p in
+                      state.controlnet.named_parameters()})
+    with_fused_resnets(False)
+    worst = max(max_err(grads[1][k], w) / w.abs().max().item()
+                for k, w in grads[0].items())
+    zero = [k for k, v in grads[1].items() if v.abs().max().item() == 0]
+    rel = abs(losses[1] - losses[0]) / abs(losses[0])
+    print(f"[train] tiny ControlNet step{' (resnets fused)' if fused else ''}"
+          f", fp32 CUDA vs CPU: loss {losses[1]:.6f} vs {losses[0]:.6f} (rel "
+          f"{rel:.2e}), gradients within {worst:.3e} of each tensor's largest "
+          f"over {len(grads[0])} tensors, {len(zero)} zero on the card; "
+          f"launches {counts}")
+    check(rel <= TINY_TRAIN_LOSS_RTOL, f"tiny train loss {losses}")
+    check(worst <= TINY_TRAIN_GRAD_REL, f"tiny train gradients {worst}")
+    check(not zero, f"ControlNet tensors without a gradient on the card: {zero}")
+    check(counts["flash_attention"] > 0 and counts["group_norm_silu"] > 0
+          and (counts["resnet_fused"] > 0) == fused,
+          f"tiny train step launches {counts}")
+
+
+def write_sa1b_folder(d: str) -> None:
+    """An SA-1B-layout folder: PNG targets, annotation JSONs whose masks are
+    COCO RLE (rectangles and discs, overlapping), data.txt of dict
+    literals."""
+    from editanything_tpu_torch.ops import rle
+    from editanything_tpu_torch.utils.image import write_png
+    rng = np.random.RandomState(23)
+    h, w = TRAIN_IMAGE_HW
+    yy, xx = np.mgrid[0:h, 0:w]
+    lines = []
+    for i in range(TRAIN_IMAGES):
+        img = _checker_image(h, w)
+        img[..., 2] = rng.randint(0, 256, (h, w))
+        write_png(os.path.join(d, f"sa_{i}.png"), img)
+        anns = []
+        for j in range(TRAIN_MASKS):
+            cy, cx = rng.randint(0, h), rng.randint(0, w)
+            r = rng.randint(20, 200)
+            m = (((yy - cy) ** 2 + (xx - cx) ** 2 <= r * r) if j % 2 else
+                 ((abs(yy - cy) <= r) & (abs(xx - cx) <= r // 2)))
+            anns.append({"segmentation": rle.encode(m.astype(np.uint8))})
+        with open(os.path.join(d, f"sa_{i}.json"), "w") as f:
+            json.dump({"image": {"height": h, "width": w},
+                       "annotations": anns}, f)
+        lines.append(repr({"target": f"sa_{i}.png", "source": f"sa_{i}.json",
+                           "prompt": f"a photo of a cat on a sofa {i}"}))
+    with open(os.path.join(d, "data.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+@contextlib.contextmanager
+def timed_train_steps(records: list):
+    """Every iteration of ``train()``'s loop timed: the batch fetch (the
+    dataset on the host), the preprocessor (VAE encode and CLIP) and the
+    step through train_controlnet's ``make_train_step``, each
+    synchronised, and the whole iteration from the fetch to the step's
+    end. Each step appends {"step_s", "counts" (its B and A launches),
+    "loss", "fetch_s", "pre_s", "iteration_s"}."""
+    from editanything_tpu_torch import data as D
+    from editanything_tpu_torch.train import train_controlnet as TC
+    made_step, made_pre = TC.make_train_step, TC.make_preprocessor
+    made_batcher = D.make_batcher
+    cur = {}
+
+    def batcher(*args, **kwargs):
+        batches = iter(made_batcher(*args, **kwargs))
+        while True:
+            torch.cuda.synchronize()
+            cur["start"] = time.perf_counter()
+            batch = next(batches, None)
+            if batch is None:
+                return
+            cur["fetch_s"] = time.perf_counter() - cur["start"]
+            yield batch
+
+    def make_pre(*args, **kwargs):
+        pre = made_pre(*args, **kwargs)
+
+        def timed(*a, **kw):
+            out, cur["pre_s"] = _synced(pre, *a, **kw)
+            return out
+        return timed
+
+    def make_step(*args, **kwargs):
+        step = made_step(*args, **kwargs)
+
+        def timed(*a, **kw):
+            _zero_counts()
+            out, seconds = _synced(step, *a, **kw)
+            records.append({"step_s": seconds, "counts": _counts(),
+                            "loss": float(out[1]["loss"]),
+                            "fetch_s": cur["fetch_s"], "pre_s": cur["pre_s"],
+                            "iteration_s": time.perf_counter() - cur["start"]})
+            return out
+        return timed
+    TC.make_train_step, TC.make_preprocessor = make_step, make_pre
+    D.make_batcher = batcher
+    try:
+        yield
+    finally:
+        TC.make_train_step, TC.make_preprocessor = made_step, made_pre
+        D.make_batcher = made_batcher
+
+
+def predicted_train_launches(unet, controlnet) -> dict:
+    """B and A launches of one training step under remat "dots": every
+    attention and every GroupNorm of the ControlNet and the UNet once in
+    the forward and once more in its recompute; the backwards (the twins)
+    launch none."""
+    from editanything_tpu_torch.core.layers import GroupNorm
+    from editanything_tpu_torch.models.blocks import Attention
+
+    def count(cls):
+        return sum(isinstance(m, cls) for net in (unet, controlnet)
+                   for m in net.modules())
+    return {"flash_attention": 2 * count(Attention),
+            "group_norm_silu": 2 * count(GroupNorm)}
+
+
+def _checksum(module) -> float:
+    return float(sum(p.detach().double().sum().item()
+                     for p in module.parameters()))
+
+
+def textinv_on_the_main_editor(editor) -> dict:
+    """``train_staged_textinv`` on the main path's editor, whose bundle is
+    bf16 as ``load_bundle`` gives it: one step of batch 1 at 512^2 on a
+    staged crop through kernels B and A; the learned rows finite, only the
+    10 placeholder rows changed, the table still bf16."""
+    import tempfile
+    from editanything_tpu_torch.utils.image import write_png
+    bundle = editor.bundle
+    check(bundle.dtype == torch.bfloat16, f"the main editor is {bundle.dtype}")
+    weight = bundle.text.embeddings.token_embedding.weight
+    v0, table0 = weight.shape[0], weight.detach().clone()
+    with tempfile.TemporaryDirectory(dir=REPO) as d:
+        editor.textinv_stage_dir = os.path.join(d, "stage")
+        os.makedirs(editor.textinv_stage_dir)
+        write_png(os.path.join(editor.textinv_stage_dir, "ref.png"),
+                  _checker_image(512, 512))
+        path = os.path.join(d, "learned_embeds.npy")
+        _zero_counts()
+        _, seconds = _synced(editor.train_staged_textinv, path, max_steps=1,
+                             batch_size=1, resolution=512)
+        counts = _counts()
+        learned = np.load(path)
+    table = bundle.text.embeddings.token_embedding.weight.detach()
+    check(table.dtype == torch.bfloat16 and table.shape[0] == v0 + 10
+          and torch.equal(table[:v0], table0),
+          "bf16 TI changed rows other than the placeholder's")
+    init = table0[bundle.tokenizer.encode("mark")[0]]
+    check(np.isfinite(learned).all() and not torch.equal(
+        table[v0:], init[None].expand(10, -1)),
+        "bf16 TI left the placeholder rows at their initializer")
+    check(counts["flash_attention"] > 0 and counts["group_norm_silu"] > 0,
+          f"bf16 TI launches {counts}")
+    print(f"[train] train_staged_textinv on the main path's editor (SD1.5 "
+          f"bf16): 1 step of batch 1 at 512^2 in {seconds:.2f} s, launches "
+          f"{counts}; only the 10 placeholder rows changed, finite")
+    return counts
+
+
+def phase_training() -> dict:
+    """Phase 5t: the Functions' gradients, the tiny step against the CPU,
+    then ``train()`` and ``train_textual_inversion()`` (through the editor's
+    ``train_staged_textinv``) at the published SD1.5 widths in fp32, random
+    weights, and a ``process`` request on the learned embedding."""
+    import tempfile
+    from editanything_tpu_torch.checkpoints.safetensors_io import load_file
+    from editanything_tpu_torch.pipelines.bundle import random_bundle
+    from editanything_tpu_torch.pipelines.editor import EditAnythingEditor
+    from editanything_tpu_torch.train.train_controlnet import train
+    t_phase = time.perf_counter()
+    train_kernel_gradients()
+    attn_rows = train_attention_rows()
+    tiny_train_parity(False)
+    tiny_train_parity(True)
+
+    t0 = time.perf_counter()
+    bundle = random_bundle(tiny=False, device="cuda", dtype=torch.float32,
+                           generator=torch.Generator("cuda").manual_seed(5),
+                           controlnet_names=("sam",))
+    cn = bundle.controlnets["sam"][1]
+    n_unet = sum(p.numel() for p in bundle.unet.parameters())
+    n_cn = sum(p.numel() for p in cn.parameters())
+    print(f"[train] SD1.5 at published widths, fp32, random weights (seed 5, "
+          f"zero convs drawn): UNet {n_unet / 1e6:.1f} M, ControlNet "
+          f"{n_cn / 1e6:.1f} M parameters, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    unet_sum = _checksum(bundle.unet)
+    cn_before = [p.detach().clone() for p in cn.parameters()]
+    predicted = predicted_train_launches(bundle.unet, cn)
+    records = []
+    with tempfile.TemporaryDirectory(dir=REPO) as d:
+        data = os.path.join(d, "sa1b")
+        os.makedirs(data)
+        t0 = time.perf_counter()
+        write_sa1b_folder(data)
+        print(f"[train] SA-1B-layout folder: {TRAIN_IMAGES} PNGs "
+              f"{TRAIN_IMAGE_HW}, {TRAIN_MASKS} RLE masks each, written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        kw = dict(data_path=data, txt_path=os.path.join(data, "data.txt"),
+                  out_dir=os.path.join(d, "run"), bundle=bundle, batch_size=2,
+                  resolution=512, remat=True, use_ema=True, log_every=1,
+                  ckpt_every=100)
+        torch.cuda.reset_peak_memory_stats()
+        with timed_train_steps(records):
+            t0 = time.perf_counter()
+            state, seconds = _synced(
+                train, max_steps=3, image_every=2, sample_steps=2,
+                export_path=os.path.join(d, "cn.safetensors"), **kw)
+            t_train = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            images = sorted(os.listdir(os.path.join(d, "run", "images")))
+            exported = load_file(os.path.join(d, "cn.safetensors"))
+            ckpt_bytes = os.path.getsize(os.path.join(d, "run", "ckpt",
+                                                      "step_3.pt"))
+            check(state.step == 3, f"train() stopped at step {state.step}")
+            for name in ("input", "hint", "reconstruction", "samples",
+                         "samples_ema"):
+                check(f"{name}_00000002.png" in images, f"no {name} grid")
+            ema = state.ema.state_dict()
+            check(sorted(exported) == sorted(ema) and all(
+                torch.equal(exported[k], ema[k].cpu()) for k in ema),
+                "the exported file is not the EMA ControlNet")
+            changed = sum(not torch.equal(a, b) for a, b in
+                          zip(cn_before, state.controlnet.parameters()))
+            del state, ema, exported
+            torch.cuda.empty_cache()
+            resumed, t_resume = _synced(train, max_steps=4, image_every=100,
+                                        **kw)
+            check(resumed.step == 4, f"resume stopped at {resumed.step}")
+            del resumed
+            torch.cuda.empty_cache()
+    check(changed == len(cn_before),
+          f"{len(cn_before) - changed} ControlNet tensors did not change")
+    check(all(torch.equal(a, b) for a, b in zip(cn_before, cn.parameters())),
+          "train() changed the bundle's own ControlNet")
+    unet_after = _checksum(bundle.unet)
+    check(unet_after == unet_sum, f"the UNet changed: {unet_sum} -> "
+                                  f"{unet_after}")
+    def listed(key):
+        vals = [r[key] for r in records]
+        return (f"{', '.join(f'{x:.3f}' for x in vals)} (mean after the "
+                f"first {sum(vals[1:]) / len(vals[1:]):.3f})")
+    losses = [r["loss"] for r in records]
+    print(f"[train] train(): 3 steps of batch 2 at 512^2 (remat dots, EMA, a "
+          f"DDIM grid at step 2, checkpoint, export) in {t_train:.1f} s, then "
+          f"a resume to step 4 in {t_resume:.1f} s; seconds per iteration "
+          f"(batch fetch to the step's end, synchronised) "
+          f"{listed('iteration_s')}, of which the batch fetch "
+          f"{listed('fetch_s')}, the preprocessor (VAE encode + CLIP) "
+          f"{listed('pre_s')} and the step {listed('step_s')}; "
+          f"losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"peak memory {peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
+          f"a checkpoint {ckpt_bytes / 2**30:.2f} GiB; {changed} of "
+          f"{len(cn_before)} ControlNet tensors changed, UNet checksum "
+          f"{unet_after!r} unchanged")
+    print(f"[train] launches per step {[r['counts'] for r in records]}; "
+          f"predicted B "
+          f"{predicted['flash_attention']} and A "
+          f"{predicted['group_norm_silu']} (forward + recompute)")
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    for r in records:
+        for name, want in predicted.items():
+            check(r["counts"][name] == want, f"{name} {r['counts'][name]} launches a "
+                                        f"step, predicted {want}")
+    del cn_before
+
+    # textual inversion through the editor: stage, learn, load
+    editor = EditAnythingEditor(bundle)
+    text = bundle.text.embeddings.token_embedding
+    v0 = text.num_embeddings
+    table0 = text.weight.detach().clone()
+    img = _checker_image(512, 512)
+    req = dict(image=img, mask=_square_mask(512, 128, 384),
+               condition_image=_checker_image(512, 512),
+               prompt="a photo of <new-obj> on a sofa", num_samples=1,
+               image_resolution=512, detect_resolution=512, ddim_steps=10,
+               ref_image=img[::-1].copy(), ref_mask=_square_mask(512, 64, 448),
+               ref_textinv=True, seed=3)
+    with tempfile.TemporaryDirectory(dir=REPO) as d:
+        editor.textinv_stage_dir = os.path.join(d, "stage")
+        path = os.path.join(d, "learned_embeds.npy")
+        _, t_stage = _synced(editor.process, **req, ref_textinv_path=path)
+        check(os.path.exists(os.path.join(d, "stage", "ref.png")),
+              "process did not stage the reference crop")
+        _zero_counts()
+        _, t_ti = _synced(editor.train_staged_textinv, path, max_steps=3,
+                          batch_size=1, resolution=512)
+        ti_counts = _counts()
+        table = bundle.text.embeddings.token_embedding.weight.detach()
+        check(table.shape[0] == v0 + 10 and torch.equal(table[:v0], table0),
+              "TI changed rows other than the placeholder's")
+        init = table0[bundle.tokenizer.encode("mark")[0]]
+        check(not torch.equal(table[v0:], init[None].expand(10, -1)),
+              "TI left the placeholder rows at their initializer")
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        (_, results, _, _), t_req = _synced(editor.process, **req,
+                                            ref_textinv_path=path)
+        req_counts = _counts()
+        req_peak = torch.cuda.max_memory_allocated()
+        out = np.stack(results)
+        check(out.shape == (1, 512, 512, 3) and out.dtype == np.uint8
+              and editor.pipe.last_nonfinite == 0,
+              f"process on the learned embedding: {out.shape}")
+        check(bundle.tokenizer.placeholders["<new-obj>"]
+              == list(range(v0 + 10, v0 + 20)),
+              "the loaded embedding's placeholder")
+    print(f"[train] textual inversion through the editor (SD1.5 fp32): the "
+          f"crop staged by a process request ({t_stage:.2f} s), "
+          f"train_staged_textinv 3 steps of batch 1 at 512^2 in {t_ti:.2f} s "
+          f"(launches {ti_counts}), only the 10 placeholder rows changed; "
+          f"process(ref_textinv=True, ref_textinv_path=...) {t_req:.2f} s "
+          f"(1 sample, 10 steps), peak {req_peak / 2**30:.2f} GiB, launches "
+          f"{req_counts}")
+    del editor, bundle
+    torch.cuda.empty_cache()
+    print(f"[train] phase 5t: {time.perf_counter() - t_phase:.1f} s")
+    step_counts = dict(records[-1]["counts"])
+    return {"controlnet train step": step_counts,
+            "textual inversion (3 steps)": ti_counts,
+            "process on the learned embedding": req_counts,
+            "train attention rows": attn_rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the GPU port only",
@@ -3489,6 +4014,13 @@ def main() -> int:
     launches, editor = phase_main_path(bundle)
     mode_launches.update(phase_captioner(editor))
     mode_launches.update(phase_grounding(editor))
+    # phase 5t opens on the main path's editor, then frees it
+    bf16_ti = textinv_on_the_main_editor(editor)
+    del editor
+    training = phase_training()
+    training["textual inversion bf16 (1 step)"] = bf16_ti
+    train_rows = training.pop("train attention rows")
+    mode_launches.update(training)
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "editanything_tpu"))
     check(not foreign, f"the port loaded {foreign}")
@@ -3516,6 +4048,7 @@ def main() -> int:
             row["blip2_shapes"] = headline["flash_attention blip2"]
             row["groundingdino_shape"] = headline[
                 "flash_attention groundingdino"]
+            row["training_fp32_shapes"] = train_rows
         if name == "resnet_fused":
             row["composed_ms"] = headline["resnet_fused composed"]
             (row["cudnn_convs_ms"],

@@ -206,8 +206,8 @@ def append_textual_inversion(text: nn.Module, embedding) -> List[int]:
     a new ``nn.Embedding`` on the same device and dtype, its rows past the
     config's ``vocab_size``. Returns the new rows' ids."""
     old = text.embeddings.token_embedding
-    emb = torch.as_tensor(np.asarray(embedding, np.float32)).to(
-        old.weight.device, old.weight.dtype)
+    emb = torch.as_tensor(embedding).detach().float().to(old.weight.device,
+                                                         old.weight.dtype)
     grown = nn.Embedding(old.num_embeddings + emb.shape[0],
                          old.embedding_dim, device=old.weight.device,
                          dtype=old.weight.dtype)

@@ -11,7 +11,8 @@ CUDA tensor goes to the kernel, whatever its size (the JAX ``n < 128`` rule
 is a TPU tiling choice). Masked attention (the CLIP causal mask) is the
 plain twin with a mask, as it is XLA in the JAX package; ``layers.attention``
 makes that choice. A CPU tensor takes the plain twin; any other device
-raises.
+raises. Where autograd records, the kernel runs inside
+``core.kernels.TwinVJP``, whose backward recomputes through the twin.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import math
 from typing import Optional
 
 import torch
+
+from editanything_tpu_torch.core.kernels import twin_vjp
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -49,8 +52,8 @@ def flash_attention_reference(q, k, v, *, scale: Optional[float] = None,
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    from editanything_tpu_torch.core.build import load_cuda_library
-    lib = load_cuda_library("flash_attention")
+    from editanything_tpu_torch.core.build import load_library
+    lib = load_library("flash_attention")
     ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.ea_flash_attention.argtypes = (
         [ptr] * 4 + [ll] * 12 + [i32] * 6 + [ctypes.c_float, i32, ptr])
@@ -82,21 +85,8 @@ def _check(q, k, v):
         raise ValueError("the last axis of q, k and v must be contiguous")
 
 
-def flash_attention(q, k, v, *, scale: Optional[float] = None):
-    """softmax(scale q k^T) v over (B, H, N, Dqk) x (B, H, M, Dqk) x
-    (B, H, M, Dv) -> (B, H, N, Dv); q/k may be deeper than v.
-
-    CUDA tensors launch the kernel (one launch, counted in
-    ``flash_attention.launches``; bf16 takes Dv <= 512 and raises beyond,
-    Dv > 160 going to the kernel's wide path); CPU tensors take the plain
-    twin. The result is a (B, H, N, Dv) view of a (B, N, H, Dv) buffer, so
-    merging the heads back costs no copy."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale=scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention: no kernel for {q.device}")
+def _launch(q, k, v, scale: float):
+    """One launch of the kernel on checked CUDA q, k, v (counted)."""
     _check(q, k, v)
     b, h, n, dqk = q.shape
     m, dv = v.shape[2], v.shape[3]
@@ -115,6 +105,27 @@ def flash_attention(q, k, v, *, scale: Optional[float] = None):
                            + lib.ea_cuda_error_string(err).decode())
     flash_attention.launches += 1
     return out
+
+
+def flash_attention(q, k, v, *, scale: Optional[float] = None):
+    """softmax(scale q k^T) v over (B, H, N, Dqk) x (B, H, M, Dqk) x
+    (B, H, M, Dv) -> (B, H, N, Dv); q/k may be deeper than v.
+
+    CUDA tensors launch the kernel (one launch, counted in
+    ``flash_attention.launches``; bf16 takes Dv <= 512 and raises beyond,
+    Dv > 160 going to the kernel's wide path), through ``TwinVJP`` where
+    autograd records (its backward recomputes through the twin); CPU
+    tensors take the plain twin. The result is a (B, H, N, Dv) view of a
+    (B, N, H, Dv) buffer, so merging the heads back costs no copy."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale=scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention: no kernel for {q.device}")
+    return twin_vjp(lambda q, k, v: _launch(q, k, v, scale),
+                    functools.partial(flash_attention_reference, scale=scale),
+                    q, k, v)
 
 
 flash_attention.launches = 0

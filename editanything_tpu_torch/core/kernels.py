@@ -17,6 +17,12 @@ each (image, group) slab on chip; where 16 CTAs cannot hold it, each holds
 what fits and reads the rest twice, the second time from L2.
 ``group_norm_plan`` is the launch plan, which the wrapper hands to the
 kernel.
+
+Training differentiates A, B (core/flash_attention.py) and E as the JAX
+package does through its ``custom_vjp``s: where autograd records, each
+launch runs inside ``TwinVJP``, a ``torch.autograd.Function`` whose
+backward recomputes through the kernel's plain twin; no kernel has a
+backward of its own, since the JAX package has none to port.
 """
 
 from __future__ import annotations
@@ -131,8 +137,8 @@ def group_norm_silu_reference(x, weight, bias, *, num_groups: int = 32,
 
 @functools.cache
 def _gn_library() -> ctypes.CDLL:
-    from editanything_tpu_torch.core.build import load_cuda_library
-    lib = load_cuda_library("group_norm")
+    from editanything_tpu_torch.core.build import load_library
+    lib = load_library("group_norm")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # x, y, w, b, N, C, H, W, groups, eps, silu, dtype, wdtype, bdtype, k,
     # held bytes, device, stream
@@ -153,32 +159,45 @@ def build() -> None:
     _gn_library()
 
 
-def group_norm_silu(x, weight, bias, *, num_groups: int = 32,
-                    eps: float = 1e-5, apply_silu: bool = True):
-    """GroupNorm(+SiLU) over an NCHW tensor with (C,) scale and bias.
+class TwinVJP(torch.autograd.Function):
+    """A kernel's forward with the JAX package's backward (its
+    ``custom_vjp``s, e.g. editanything_tpu/core/kernels.py:178-185):
+    ``launch(*inputs)`` runs the kernel, and the backward recomputes
+    ``twin(*inputs)`` under autograd from the saved inputs and
+    differentiates it against the output's gradient. A recompute of the
+    forward (``torch.utils.checkpoint``) launches the kernel again, and
+    counts."""
 
-    CUDA tensors launch kernel A (one launch, counted in
-    ``group_norm_silu.launches``) with the plan of ``group_norm_plan``;
-    CPU tensors take the plain twin."""
-    if x.device.type == "cpu":
-        return group_norm_silu_reference(x, weight, bias, num_groups=num_groups,
-                                         eps=eps, apply_silu=apply_silu)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"group_norm_silu: no kernel for {x.device}")
-    if x.dim() != 4:
-        raise ValueError(f"group_norm_silu takes NCHW, got {tuple(x.shape)}")
+    @staticmethod
+    def forward(ctx, launch, twin, *inputs):
+        ctx.save_for_backward(*inputs)
+        ctx.twin = twin
+        return launch(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, needs)]
+            got = iter(torch.autograd.grad(
+                ctx.twin(*leaves), [t for t, n in zip(leaves, needs) if n],
+                grad, allow_unused=True))
+        return (None, None) + tuple(next(got) if n else None for n in needs)
+
+
+def twin_vjp(launch, twin, *inputs):
+    """``launch(*inputs)``, through ``TwinVJP`` where autograd records (grad
+    mode on and an input that requires grad)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in inputs):
+        return TwinVJP.apply(launch, twin, *inputs)
+    return launch(*inputs)
+
+
+def _gn_launch(x, weight, bias, num_groups, eps, apply_silu):
+    """One launch of kernel A on checked CUDA inputs (counted)."""
     n, c, h, w = x.shape
-    if c % num_groups:
-        raise ValueError(f"{c} channels do not split into {num_groups} groups")
-    if x.dtype not in _GN_DTYPE_CODES:
-        raise TypeError(f"group_norm_silu: unsupported dtype {x.dtype}")
-    if weight.shape != (c,) or bias.shape != (c,):
-        raise ValueError("scale and bias must be (C,)")
-    if not (weight.device == bias.device == x.device):
-        raise ValueError("x, scale and bias must be on one device")
-    if weight.dtype not in _GN_DTYPE_CODES or bias.dtype not in _GN_DTYPE_CODES:
-        raise TypeError(f"group_norm_silu: scale and bias must be fp32, bf16 "
-                        f"or fp16, got {weight.dtype} and {bias.dtype}")
     plan = group_norm_plan(n, c, h, w, num_groups, x.element_size())
     lib = _gn_library()
     # held until the launch is queued: the pointers are into these tensors
@@ -194,6 +213,39 @@ def group_norm_silu(x, weight, bias, *, num_groups: int = 32,
     _raise_on(err, lib, "group_norm_silu")
     group_norm_silu.launches += 1
     return y
+
+
+def group_norm_silu(x, weight, bias, *, num_groups: int = 32,
+                    eps: float = 1e-5, apply_silu: bool = True):
+    """GroupNorm(+SiLU) over an NCHW tensor with (C,) scale and bias.
+
+    CUDA tensors launch kernel A (one launch, counted in
+    ``group_norm_silu.launches``) with the plan of ``group_norm_plan``,
+    through ``TwinVJP`` where autograd records (its backward recomputes
+    through the twin); CPU tensors take the plain twin."""
+    twin = functools.partial(group_norm_silu_reference, num_groups=num_groups,
+                             eps=eps, apply_silu=apply_silu)
+    if x.device.type == "cpu":
+        return twin(x, weight, bias)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"group_norm_silu: no kernel for {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"group_norm_silu takes NCHW, got {tuple(x.shape)}")
+    c = x.shape[1]
+    if c % num_groups:
+        raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    if x.dtype not in _GN_DTYPE_CODES:
+        raise TypeError(f"group_norm_silu: unsupported dtype {x.dtype}")
+    if weight.shape != (c,) or bias.shape != (c,):
+        raise ValueError("scale and bias must be (C,)")
+    if not (weight.device == bias.device == x.device):
+        raise ValueError("x, scale and bias must be on one device")
+    if weight.dtype not in _GN_DTYPE_CODES or bias.dtype not in _GN_DTYPE_CODES:
+        raise TypeError(f"group_norm_silu: scale and bias must be fp32, bf16 "
+                        f"or fp16, got {weight.dtype} and {bias.dtype}")
+    return twin_vjp(
+        lambda x, w, b: _gn_launch(x, w, b, num_groups, eps, apply_silu),
+        twin, x, weight, bias)
 
 
 group_norm_silu.launches = 0
@@ -405,8 +457,8 @@ def bind_twoway(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @functools.cache
 def _sam_library(name: str) -> ctypes.CDLL:
-    from editanything_tpu_torch.core.build import load_cuda_library
-    lib = load_cuda_library(name)
+    from editanything_tpu_torch.core.build import load_library
+    lib = load_library(name)
     return bind_twoway(lib) if name == "sam_twoway" else bind_upscale(lib)
 
 
@@ -943,8 +995,8 @@ def bind_resnet(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 @functools.cache
 def _resnet_library() -> ctypes.CDLL:
-    from editanything_tpu_torch.core.build import load_cuda_library
-    return bind_resnet(load_cuda_library("resnet_fused"))
+    from editanything_tpu_torch.core.build import load_library
+    return bind_resnet(load_library("resnet_fused"))
 
 
 def build_resnet() -> None:
@@ -1047,9 +1099,10 @@ def resnet_fused(x, norm1_w, norm1_b, w1, b1, trow, norm2_w, norm2_b, w2,
     ``resnet_fused.launches``) as ``resnet_plan`` plans it, with the conv
     weights packed tap-major once per weight tensor (``packed_conv_weight``,
     repacked after an in-place change), and take fp32 or bf16 with every
-    parameter in x's dtype; CPU tensors take the plain twin. Shapes the
-    block cannot have raise: channels that do not split into the groups,
-    kernels other than 3x3, an identity shortcut with Cin != Cout."""
+    parameter in x's dtype, through ``TwinVJP`` where autograd records (its
+    backward recomputes through the twin); CPU tensors take the plain twin.
+    Shapes the block cannot have raise: channels that do not split into the
+    groups, kernels other than 3x3, an identity shortcut with Cin != Cout."""
     if x.dim() != 4:
         raise ValueError(f"resnet_fused takes NCHW, got {tuple(x.shape)}")
     n, cin, hgt, wid = x.shape
@@ -1082,6 +1135,14 @@ def resnet_fused(x, norm1_w, norm1_b, w1, b1, trow, norm2_w, norm2_b, w2,
            for t in args):
         raise TypeError("resnet_fused: every parameter must have x's dtype "
                         "and device")
+    return twin_vjp(lambda x, *a: _resnet_forward(x, a, num_groups, eps),
+                    functools.partial(resnet_fused_reference,
+                                      num_groups=num_groups, eps=eps),
+                    x, *args)
+
+
+def _resnet_forward(x, args, num_groups, eps):
+    """One call of kernel E on checked CUDA inputs (counted)."""
     out = _resnet_launch(_resnet_library(), x.contiguous(), args, num_groups,
                          eps)[0]
     resnet_fused.launches += 1

@@ -32,6 +32,13 @@ class GaussianPosterior(NamedTuple):
     def mode(self):
         return self.mean
 
+    def sample(self, noise):
+        """mean + std * `noise` (a draw of the latents' shape, passed in),
+        the log-variance clipped to [-30, 20] (ldm's
+        DiagonalGaussianDistribution, as the JAX package samples it)."""
+        std = torch.exp(0.5 * torch.clamp(self.logvar, -30.0, 20.0))
+        return self.mean + std * noise.to(self.mean.dtype)
+
 
 class _VAEMidBlock(nn.Module):
     def __init__(self, ch: int, g: int):

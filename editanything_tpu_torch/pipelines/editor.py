@@ -265,14 +265,31 @@ class EditAnythingEditor:
         write_png(os.path.join(self.textinv_stage_dir, "ref.png"), crop)
         print(f"No textual-inversion embedding found; staged the ref crop "
               f"in {self.textinv_stage_dir} — train with "
-              f"`editanything-tpu train-ti --train-data-dir "
+              f"`train_staged_textinv` or `python -m "
+              f"editanything_tpu_torch.train.train_ti --train-data-dir "
               f"{self.textinv_stage_dir}` (editany_lora.py:737-745)")
         return False
 
-    def train_staged_textinv(self, output_path: str, **kwargs) -> str:
-        """Textual-inversion training on the staged crop: not ported."""
-        raise NotImplementedError("textual-inversion training: not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
+    def train_staged_textinv(self, output_path: str, *,
+                             max_steps: int = 3000, num_vectors: int = 10,
+                             batch_size: int = 4, resolution: int = 512,
+                             lr: float = 5e-4, seed: int = 0,
+                             **kwargs) -> str:
+        """Textual inversion on the staged reference crop(s), learned into
+        this editor's bundle (the reference's run_texutal_inversion.sh flow,
+        callable; JAX editor.py:268-285). Returns `output_path`; a later
+        ``process(ref_textinv=True, ref_textinv_path=output_path)``, or a
+        prompt with ``textinv_token``, uses the embedding. `kwargs` go to
+        ``train.train_ti.train_textual_inversion``."""
+        from editanything_tpu_torch.train.train_ti import \
+            train_textual_inversion
+        train_textual_inversion(
+            data_dir=self.textinv_stage_dir, output_path=output_path,
+            bundle=self.bundle, placeholder_token=self.textinv_token,
+            max_steps=max_steps, num_vectors=num_vectors,
+            batch_size=batch_size, resolution=resolution, lr=lr, seed=seed,
+            **kwargs)
+        return output_path
 
     # -- the main edit -----------------------------------------------------
 

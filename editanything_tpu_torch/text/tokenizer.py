@@ -25,6 +25,8 @@ import re
 from functools import lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+
 
 @lru_cache()
 def bytes_to_unicode() -> Dict[int, str]:
@@ -159,6 +161,25 @@ class CLIPTokenizer:
                             for b in token.encode("utf-8"))
             ids.extend(self.encoder[t] for t in self.bpe(token).split(" "))
         return ids
+
+    def __call__(self, texts, *, pad_to: Optional[int] = None,
+                 truncate: bool = False) -> np.ndarray:
+        """Prompts -> (B, L) int32 rows [BOS, ids, EOS, EOS...], the JAX
+        tokenizer's ``__call__``: L is `pad_to`, else the longest row; with
+        `truncate` the ids are cut to `pad_to` (or the context length)
+        minus 2 first."""
+        if isinstance(texts, str):
+            texts = [texts]
+        all_ids = [self.encode(t) for t in texts]
+        if truncate:
+            limit = (pad_to or self.context_length) - 2
+            all_ids = [ids[:limit] for ids in all_ids]
+        length = pad_to or (max(len(i) for i in all_ids) + 2)
+        out = np.full((len(all_ids), length), self.eos_id, np.int32)
+        for r, ids in enumerate(all_ids):
+            row = [self.bos_id] + list(ids[:length - 2]) + [self.eos_id]
+            out[r, :len(row)] = row
+        return out
 
     def decode(self, ids: Sequence[int]) -> str:
         """Token ids -> text, '</w>' as spaces."""

@@ -6,7 +6,12 @@ upscaling, BOX when downscaling), in numpy and to the level, so no path of
 the port needs PIL at any resolution; ``resize_pil`` takes any of those
 filters, BICUBIC (the safety checker's resize) and BILINEAR (the
 detectors') at a given size.
-``write_png`` writes an 8-bit RGB PNG with ``zlib`` alone.
+``write_png`` writes an 8-bit RGB PNG with ``zlib`` alone, and
+``read_image`` reads one (8-bit gray, gray + alpha, RGB or RGBA, any of
+the five row filters) the same way; any other file goes through PIL,
+imported for it alone, so the training data needs no PIL on a machine
+without it. ``resize_pil(..., "nearest")`` is PIL's NEAREST (the SAM
+condition's resize in the training data).
 ``resize_nearest``/``resize_bilinear`` reproduce ``jax.image.resize``: its
 "nearest" samples at half-pixel centres (torch's ``nearest-exact``), its
 "bilinear" antialiases when downscaling. ``resize_jax`` is
@@ -147,11 +152,15 @@ def resize_pil(image: np.ndarray, size: Tuple[int, int],
     horizontal pass first, each pass clipped to uint8, a pass skipped where
     its side keeps its size. Downscaling widens every filter's support by
     the scale, as PIL does, so "bilinear" averages over the whole
-    footprint there (the detectors' resize)."""
+    footprint there (the detectors' resize). "nearest" picks source
+    pixels as PIL's NEAREST (``_nearest_index``)."""
     if image.dtype != np.uint8:
         raise TypeError(f"resize_pil takes uint8, got {image.dtype}")
     h, w = size
     h0, w0 = image.shape[:2]
+    if filt == "nearest":
+        return np.ascontiguousarray(
+            image[_nearest_index(h0, h)][:, _nearest_index(w0, w)])
     out = image if image.ndim == 3 else image[:, :, None]
     if w != w0:     # (H * C, W) @ (W, w)
         mat = _resample_matrix(w0, w, filt)
@@ -164,6 +173,101 @@ def resize_pil(image: np.ndarray, size: Tuple[int, int],
         out = _clip8(mat @ out.reshape(hh, ww * c).astype(np.float64)
                      ).reshape(h, ww, c)
     return np.ascontiguousarray(out if image.ndim == 3 else out[:, :, 0])
+
+
+def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """The source index of each output pixel under PIL's NEAREST resize
+    (Geometry.c ``ImagingScaleAffine``): the sample position starts at half
+    a step and adds the step n_in / n_out in double precision, one output
+    pixel at a time, and is truncated; the running sum, not the product,
+    decides where a position lands on an integer."""
+    step = n_in / n_out
+    pos = np.add.accumulate(np.concatenate([[0.5 * step],
+                                            np.full(n_out - 1, step)]))
+    return np.minimum(pos.astype(np.int64), n_in - 1)
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}    # gray, RGB, gray + alpha, RGBA
+
+
+def _png_unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
+    """The filtered scanlines (h, 1 + w * bpp) -> (h, w, bpp) uint8. Rows
+    filtered None, Sub or Up are undone a row at a time; where an Average
+    or Paeth row occurs, the image is undone by anti-diagonals (a pixel
+    needs its left, upper and upper-left neighbours), each vectorised."""
+    kinds = raw[:, 0]
+    data = raw[:, 1:].reshape(h, w, bpp).astype(np.int32)
+    if kinds.max(initial=0) > 4:
+        raise ValueError(f"PNG: unknown row filter {int(kinds.max())}")
+    out = np.zeros((h + 1, w + 1, bpp), np.int32)     # a zero row and column
+    if kinds.max(initial=0) <= 2:
+        for y in range(h):
+            row = data[y]
+            if kinds[y] == 1:
+                row = np.cumsum(row, axis=0)
+            elif kinds[y] == 2:
+                row = row + out[y, 1:]
+            out[y + 1, 1:] = row & 255
+        return out[1:, 1:].astype(np.uint8)
+    for d in range(h + w - 1):
+        ys = np.arange(max(0, d - w + 1), min(h, d + 1))
+        xs = d - ys
+        a, b, c = out[ys + 1, xs], out[ys, xs + 1], out[ys, xs]
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        k = kinds[ys][:, None]
+        pred = np.select([k == 1, k == 2, k == 3, k == 4],
+                         [a, b, (a + b) >> 1, paeth], 0)
+        out[ys + 1, xs + 1] = (data[ys, xs] + pred) & 255
+    return out[1:, 1:].astype(np.uint8)
+
+
+def _read_png(buf: bytes):
+    """An 8-bit, non-interlaced gray / gray + alpha / RGB / RGBA PNG ->
+    (H, W, C) uint8, or None for any other PNG."""
+    pos, header, idat = 8, None, []
+    while pos < len(buf):
+        n = struct.unpack(">I", buf[pos:pos + 4])[0]
+        kind, data = buf[pos + 4:pos + 8], buf[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", data)
+        elif kind == b"IDAT":
+            idat.append(data)
+        elif kind == b"IEND":
+            break
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or interlace or color not in _PNG_CHANNELS:
+        return None
+    bpp = _PNG_CHANNELS[color]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    return _png_unfilter(raw[:h * (1 + w * bpp)].reshape(h, 1 + w * bpp),
+                         h, w, bpp)
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file -> (H, W, 3) uint8 RGB, as PIL's
+    ``Image.open(path).convert("RGB")`` gives it: gray is repeated and
+    alpha dropped. 8-bit PNGs (gray, gray + alpha, RGB, RGBA) are decoded
+    with ``zlib`` alone; any other file (JPEG, a palette or 16-bit PNG)
+    needs PIL, imported here only, and raises an ImportError naming the
+    file without it."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    img = _read_png(buf) if buf.startswith(_PNG_SIGNATURE) else None
+    if img is not None:
+        c = img.shape[2]
+        return np.ascontiguousarray(
+            np.repeat(img[..., :1], 3, axis=2) if c <= 2 else img[..., :3])
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"reading {path} needs PIL (only 8-bit PNGs are "
+                          f"decoded without it)") from e
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
 
 
 def write_png(path: str, image: np.ndarray) -> None:

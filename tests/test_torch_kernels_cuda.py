@@ -642,3 +642,262 @@ def test_resnet_block_launches_the_kernel_under_the_switch(cuda_device,
         torch.cuda.synchronize()
     assert tk.resnet_fused.launches == before + 1
     assert (fused - composed).abs().max().item() <= 1e-4
+
+
+# --- training: the kernels' autograd Functions --------------------------------
+# The backward of B, A and E recomputes through the plain twin (the JAX
+# package's custom_vjp backwards), so on the same inputs the gradients are
+# the twin's own autograd ones: fp32 and bf16 both within 1e-5 of the
+# largest gradient (the same ops, cuDNN's conv backward made deterministic;
+# only the forward differs, and it does not enter the backward).
+GRAD_REL = 1e-5
+
+
+def _grad_pair(fn, twin, inputs, seed=0):
+    """(kernel output, its gradients) and the twin's, for one random
+    cotangent."""
+    outs = []
+    for f in (fn, twin):
+        leaves = [t.detach().clone().requires_grad_(t.is_floating_point())
+                  for t in inputs]
+        out = f(*leaves)
+        assert out.grad_fn is not None
+        g = torch.randn(out.shape, device=out.device,
+                        generator=torch.Generator(out.device).manual_seed(seed)
+                        ).to(out.dtype)
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                        allow_tf32=False):
+            outs.append((out.detach(), torch.autograd.grad(out, leaves, g)))
+    return outs
+
+
+def _assert_grads(got, want):
+    for a, b in zip(got, want):
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= GRAD_REL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,dqk,dv", [(256, 256, 40, 40), (256, 77, 80, 80),
+                                        (64, 77, 160, 160), (64, 64, 512, 512),
+                                        (96, 64, 208, 80)])
+def test_flash_attention_gradients_match_plain(cuda_device, dtype, n, m, dqk,
+                                               dv):
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _qkv(11, 2, 2, n, m, dqk, dv))
+    before = tfa.flash_attention.launches
+    (out, got), (ref, want) = _grad_pair(tfa.flash_attention,
+                                         tfa.flash_attention_reference,
+                                         (q, k, v))
+    assert tfa.flash_attention.launches == before + 1
+    err, bound = _attention_err_and_bound(out, ref)
+    assert err <= bound
+    _assert_grads(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,eps,silu", [((2, 64, 16, 16), 1e-5, True),
+                                            ((2, 128, 8, 8), 1e-6, False),
+                                            ((1, 320, 32, 32), 1e-5, True)])
+def test_group_norm_silu_gradients_match_plain(cuda_device, dtype, shape, eps,
+                                               silu):
+    x, w, b = _group_norm_inputs(cuda_device, dtype, shape, seed=12)
+    w, b = w.float(), b.float()
+    before = tk.group_norm_silu.launches
+
+    def fn(x, w, b):
+        return tk.group_norm_silu(x, w, b, eps=eps, apply_silu=silu)
+
+    def twin(x, w, b):
+        return tk.group_norm_silu_reference(x, w, b, eps=eps, apply_silu=silu)
+    (out, got), (ref, want) = _grad_pair(fn, twin, (x, w, b))
+    assert tk.group_norm_silu.launches == before + 1
+    assert (out.float() - ref.float()).abs().max().item() <= (
+        6.25e-2 if dtype == torch.bfloat16 else 1e-4)
+    _assert_grads(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,temb,eps,h,w,groups", RESNET_CASES[:3])
+def test_resnet_fused_gradients_match_plain(cuda_device, dtype, cin, cout,
+                                            temb, eps, h, w, groups):
+    x, args = _resnet_inputs(cuda_device, dtype, cin, cout, temb, h, w,
+                             groups, seed=13)
+    present = [i for i, a in enumerate(args) if a is not None]
+
+    def spread(rest):
+        full = [None] * len(args)
+        for i, t in zip(present, rest):
+            full[i] = t
+        return full
+
+    def fn(x, *rest):
+        return tk.resnet_fused(x, *spread(rest), num_groups=groups, eps=eps)
+
+    def twin(x, *rest):
+        return tk.resnet_fused_reference(x, *spread(rest), num_groups=groups,
+                                         eps=eps)
+    before = tk.resnet_fused.launches
+    (out, got), (ref, want) = _grad_pair(
+        fn, twin, [x] + [args[i] for i in present])
+    assert tk.resnet_fused.launches == before + 1
+    _resnet_check(out, ref, dtype)
+    _assert_grads(got, want)
+
+
+@pytest.mark.cuda
+def test_kernels_relaunch_under_checkpointing(cuda_device):
+    """torch.utils.checkpoint recomputes the forward in the backward: each
+    Function launches its kernel again, and counts it."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device).requires_grad_(True)
+               for a in _qkv(3, 1, 2, 64, 64, 40, 40))
+    x, w, b = _group_norm_inputs(cuda_device, torch.float32, (2, 64, 8, 8),
+                                 seed=3)
+    x.requires_grad_(True)
+
+    def block(q, k, v, x):
+        return (tfa.flash_attention(q, k, v).sum()
+                + tk.group_norm_silu(x, w, b).sum())
+    counts = (tfa.flash_attention.launches, tk.group_norm_silu.launches)
+    torch.utils.checkpoint.checkpoint(block, q, k, v, x,
+                                      use_reentrant=False).backward()
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches - counts[0],
+            tk.group_norm_silu.launches - counts[1]) == (2, 2)
+    assert q.grad is not None and x.grad is not None
+    with torch.no_grad():         # no autograd: the kernel alone, no Function
+        assert tfa.flash_attention(q, k, v).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_resnet_fused_repacks_after_an_optimizer_step(cuda_device):
+    x, args = _resnet_inputs(cuda_device, torch.float32, 64, 32, True, 16, 16,
+                             32, seed=14)
+    params = [a.requires_grad_(True) for a in args if a is not None]
+    opt = torch.optim.SGD(params, lr=0.5)
+    first = tk.resnet_fused(x, *args)
+    first.square().mean().backward()
+    opt.step()
+    second = tk.resnet_fused(x, *args)
+    with torch.no_grad():
+        want = tk.resnet_fused_reference(x, *args)
+    torch.cuda.synchronize()
+    _resnet_check(second.detach(), want, torch.float32)
+    assert (second - first).abs().max().item() > 1e-3
+
+
+@pytest.mark.cuda
+def test_tiny_controlnet_step_on_cuda_matches_cpu(cuda_device):
+    """One training step of the tiny ControlNet in fp32 on the card (kernels
+    B and A forward, their twins backward) against the CPU (twins only):
+    loss within 1e-5 relative, every gradient within 1e-4 of its tensor's
+    largest, and none of them zero (the zero convs are drawn)."""
+    from editanything_tpu_torch.pipelines.bundle import random_bundle
+    from editanything_tpu_torch.samplers.schedule import make_schedule
+    from editanything_tpu_torch.train import controlnet_train as T
+    grads, losses = [], []
+    g = torch.Generator().manual_seed(0)
+    batch = {"latents": torch.randn(2, 4, 8, 8, generator=g),
+             "hint": torch.rand(2, 3, 64, 64, generator=g),
+             "context": torch.randn(2, 8, 32, generator=g)}
+    t, noise = torch.tensor([17, 640]), torch.randn(2, 4, 8, 8, generator=g)
+    for device in ("cpu", cuda_device):
+        tb = random_bundle(tiny=True, device="cpu", controlnet_names=("sam",),
+                           generator=torch.Generator().manual_seed(3))
+        tb.to(device)
+        tb.unet.requires_grad_(False)
+        cn = tb.controlnets["sam"][1]
+        state = T.init_train_state(cn, lambda p: torch.optim.SGD(p, lr=1.0))
+        counts = (tfa.flash_attention.launches, tk.group_norm_silu.launches)
+        _, m = T.make_train_step(make_schedule(), remat=True)(
+            state, tb.unet, {k: v.to(device) for k, v in batch.items()},
+            t=t, noise=noise)
+        if device != "cpu":
+            assert tfa.flash_attention.launches > counts[0]
+            assert tk.group_norm_silu.launches > counts[1]
+        losses.append(float(m["loss"]))
+        grads.append({k: p.grad.cpu() for k, p in
+                      state.controlnet.named_parameters()})
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5)
+    for name, want in grads[0].items():
+        got = grads[1][name]
+        scale = want.abs().max().item()
+        assert got.abs().max().item() > 0, name
+        assert (got - want).abs().max().item() <= 1e-4 * scale, name
+
+
+@pytest.mark.cuda
+def test_tiny_ti_step_on_a_bf16_bundle_on_cuda(cuda_device):
+    """One textual-inversion step on a bf16 bundle on the card (the dtype
+    ``load_bundle`` gives; kernels B and A forward, the twins backward)
+    against the CPU's fp32 step on the same weights: the loss within 5e-3
+    relative, only the placeholder rows moved, the table still bf16."""
+    import functools
+    from editanything_tpu_torch.pipelines.bundle import random_bundle
+    from editanything_tpu_torch.samplers.schedule import make_schedule
+    from editanything_tpu_torch.train import textual_inversion as TTI
+    g = torch.Generator().manual_seed(0)
+    lat = torch.randn(2, 4, 8, 8, generator=g)
+    noise = torch.randn(2, 4, 8, 8, generator=g)
+    losses = []
+    for device, dtype in (("cpu", torch.float32), (cuda_device, torch.bfloat16)):
+        tb = random_bundle(tiny=True, device="cpu", controlnet_names=(),
+                           generator=torch.Generator().manual_seed(3))
+        tb.to("cpu", torch.bfloat16).to(device, dtype)
+        pids = TTI.add_placeholder_tokens(tb.text, tb.tokenizer, num_vectors=2,
+                                          initializer_token="cat")
+        tb.text.requires_grad_(False)
+        tb.unet.requires_grad_(False)
+        state = TTI.init_ti_state(tb.text,
+                                  functools.partial(torch.optim.Adam, lr=1e-3))
+        before = state.embeddings.detach().clone()
+        ids = np.asarray([TTI.placeholder_prompt_ids(
+            tb.tokenizer, "a photo of a {}", pids, 8)] * 2)
+        counts = (tfa.flash_attention.launches, tk.group_norm_silu.launches)
+        _, m = TTI.make_ti_train_step(make_schedule(), pids)(
+            state, tb.text, tb.unet,
+            {"latents": lat.to(device), "input_ids": ids},
+            t=torch.tensor([10, 700]), noise=noise)
+        if device != "cpu":
+            assert tfa.flash_attention.launches > counts[0]
+            assert tk.group_norm_silu.launches > counts[1]
+        assert state.embeddings.dtype == dtype
+        moved = (state.embeddings.detach() != before).any(dim=1)
+        assert moved.nonzero().flatten().tolist() == pids
+        losses.append(float(m["loss"]))
+    np.testing.assert_allclose(losses[1], losses[0], rtol=5e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["full", "dots", "offload"])
+def test_tiny_controlnet_step_remat_modes_on_cuda(cuda_device, remat):
+    """JAX's remat options on the card (checkpointing that reruns the
+    kernels; "offload" keeps the linear layers' outputs in pinned host
+    memory): the same
+    gradients as without, within 1e-5 of each tensor's largest."""
+    from editanything_tpu_torch.pipelines.bundle import random_bundle
+    from editanything_tpu_torch.samplers.schedule import make_schedule
+    from editanything_tpu_torch.train import controlnet_train as T
+    tb = random_bundle(tiny=True, device=cuda_device, controlnet_names=("sam",),
+                       generator=torch.Generator(cuda_device).manual_seed(3))
+    tb.unet.requires_grad_(False)
+    cn = tb.controlnets["sam"][1]
+    g = torch.Generator(cuda_device).manual_seed(1)
+    batch = {"latents": torch.randn(2, 4, 8, 8, generator=g, device=cuda_device),
+             "hint": torch.rand(2, 3, 64, 64, generator=g, device=cuda_device),
+             "context": torch.randn(2, 8, 32, generator=g, device=cuda_device)}
+    t = torch.tensor([3, 900], device=cuda_device)
+    noise = torch.randn(2, 4, 8, 8, generator=g, device=cuda_device)
+    grads = []
+    for mode in (False, remat):
+        state = T.init_train_state(cn, lambda p: torch.optim.SGD(p, lr=1.0))
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                        allow_tf32=False):
+            T.make_train_step(make_schedule(), remat=mode)(
+                state, tb.unet, batch, t=t, noise=noise)
+        grads.append([p.grad for p in state.controlnet.parameters()])
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 1e-5 * a.abs().max().item()

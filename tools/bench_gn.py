@@ -220,7 +220,7 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"[device] {torch.cuda.get_device_name(0)}; {smi}")
     t0 = time.perf_counter()
-    build.build_cuda_libraries(["group_norm"])
+    build.build_libraries(["group_norm"])
     impls = {"checkout": K.group_norm_silu}
     if args.baseline:
         impls["baseline"] = load_baseline(args.baseline)

@@ -333,7 +333,7 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"[device] {torch.cuda.get_device_name(0)}; {smi}")
     t0 = time.perf_counter()
-    build.build_cuda_libraries(["resnet_fused", "group_norm"])
+    build.build_libraries(["resnet_fused", "group_norm"])
     impls = {"checkout": lambda x, a, eps: K.resnet_fused(x, *a, eps=eps)}
     if args.baseline:
         base, log = build_baseline(args.baseline)

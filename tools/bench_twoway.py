@@ -124,8 +124,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    build.build_cuda_libraries(["sam_twoway"])
-    libs = {"checkout": K.bind_twoway(build.load_cuda_library("sam_twoway"))}
+    build.build_libraries(["sam_twoway"])
+    libs = {"checkout": K.bind_twoway(build.load_library("sam_twoway"))}
     logs = {"checkout": build.BUILD_LOG["sam_twoway"]["log"]}
     if args.baseline:
         libs["baseline"], logs["baseline"] = build_baseline(args.baseline)

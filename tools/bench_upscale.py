@@ -124,8 +124,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    build.build_cuda_libraries(["sam_upscale"])
-    libs = {"checkout": K.bind_upscale(build.load_cuda_library("sam_upscale"))}
+    build.build_libraries(["sam_upscale"])
+    libs = {"checkout": K.bind_upscale(build.load_library("sam_upscale"))}
     logs = {"checkout": build.BUILD_LOG["sam_upscale"]["log"]}
     if args.baseline:
         libs["baseline"], logs["baseline"] = build_baseline(args.baseline)
