@@ -182,6 +182,22 @@ non-zero, and nothing is caught:
      ``train_staged_textinv`` learns its 10 rows (3 steps, batch 1; only
      they change) and ``process(ref_textinv=True, ref_textinv_path=...)``
      runs on the learned file.
+  6. DreamBooth, data parallelism and the apps, after 5t has freed its
+     state: ``generate_class_images`` (the 9-channel SD1.5 inpaint UNet at
+     published widths, bf16, random weights: 2 images of 512^2, 30 steps);
+     the DreamBooth ``train()`` in fp32 (batch 1 instance + 1 class image
+     at 512^2, AdamW): the full finetune for 3 steps and a resume, then
+     LoRA of rank 4 for 3 steps, each iteration timed whole and in parts
+     (batch, preprocessor, step) with the step's and the preprocessor's B
+     and A launches equal to the prediction, the peak memory, and the
+     frozen UNet bit-unchanged after LoRA; a one-rank nccl process group
+     around one DreamBooth step and one ControlNet ``train()`` step, each
+     equal to the step without the group to the bit (cuDNN deterministic);
+     the command line in-process: ``edit`` with no mask from a spec of
+     full-width files the phase writes (the SD1.5 bundle in fp16, two
+     ControlNets, SAM ViT-H's fp32 ``.pth``), its B launches as predicted
+     and D and C launched; ``train-dreambooth --bundle-spec`` on tiny
+     files; ``add-control`` on a tiny written SD checkpoint.
 The last two lines are the kernels' JSON summary and the result line.
 Nothing here imports jax or the JAX package (editanything_tpu); the run
 checks that no module of either was loaded.
@@ -192,6 +208,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -3989,6 +4006,492 @@ def phase_training() -> dict:
             "train attention rows": attn_rows}
 
 
+# phase 6: DreamBooth-inpaint, its LoRA variant, data parallelism and the
+# command line. The class images and the training step at the published
+# SD1.5 widths; DreamBooth's batch is 1 instance + 1 class image (prior
+# preservation), as the reference's default --train_batch_size 1
+DB_CLASS_IMAGES = 2
+DB_CLASS_STEPS = 30
+DB_STEPS = 3
+DB_LORA_RANK = 4
+DB_RESOLUTION = 512
+DB_LR = 5e-6
+# the command line's edit on the files the phase writes: 1 sample, fewer
+# steps than the UI's 30 (the edit's time is phases 4 and 5's)
+CLI_EDIT_STEPS = 10
+
+
+def db_predicted_launches(bundle) -> dict:
+    """B and A launches of DreamBooth's pieces, by module count: a step
+    runs the 9-channel UNet's forward once (no remat; the backwards are the
+    twins', which launch nothing); the preprocessor two VAE encodes; a
+    class-image batch the UNet at every step (CFG by batch doubling, one
+    call), one VAE encode of the blank image and one decode."""
+    from editanything_tpu_torch.core.layers import GroupNorm
+    from editanything_tpu_torch.models.blocks import Attention, VAEAttention
+
+    def count(module, cls):
+        return sum(isinstance(m, cls) for m in module.modules())
+
+    def launches(module):
+        # the VAE attention's own norm is plain F.group_norm, not kernel A
+        return {"flash_attention": count(module, (Attention, VAEAttention)),
+                "group_norm_silu": count(module, GroupNorm)
+                - count(module, VAEAttention)}
+    unet, enc, dec = (launches(m) for m in (bundle.unet, bundle.vae.encoder,
+                                            bundle.vae.decoder))
+    return {"step": unet,
+            "preprocessor": {k: 2 * v for k, v in enc.items()},
+            "class batch": {k: DB_CLASS_STEPS * unet[k] + enc[k] + dec[k]
+                            for k in unet}}
+
+
+@contextlib.contextmanager
+def timed_db_steps(records: list):
+    """Every iteration of the DreamBooth ``train()``'s loop timed: the
+    batch (host), the preprocessor (two VAE encodes and the latent mask)
+    and the step (full or LoRA), each synchronised, with the B and A
+    launches of the preprocessor and of the step; each step appends
+    {"fetch_s", "pre_s", "step_s", "iteration_s", "pre_counts", "counts",
+    "loss"}."""
+    from editanything_tpu_torch.train import train_dreambooth as TD
+    made = (TD.make_preprocessor, TD.make_db_train_step,
+            TD.make_db_lora_train_step, TD.DreamBoothBatcher.next)
+    cur = {}
+
+    def batch_next(self, batch_size):
+        torch.cuda.synchronize()
+        cur["start"] = time.perf_counter()
+        out = made[3](self, batch_size)
+        cur["fetch_s"] = time.perf_counter() - cur["start"]
+        return out
+
+    def make_pre(*args, **kwargs):
+        pre = made[0](*args, **kwargs)
+
+        def timed(*a, **kw):
+            _zero_counts()
+            out, cur["pre_s"] = _synced(pre, *a, **kw)
+            cur["pre_counts"] = _counts()
+            return out
+        return timed
+
+    def wrap(make):
+        def make_step(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def timed(*a, **kw):
+                _zero_counts()
+                out, seconds = _synced(step, *a, **kw)
+                records.append({
+                    "step_s": seconds, "counts": _counts(),
+                    "loss": float(out[1]["loss"]), "fetch_s": cur["fetch_s"],
+                    "pre_s": cur["pre_s"], "pre_counts": cur["pre_counts"],
+                    "iteration_s": time.perf_counter() - cur["start"]})
+                return out
+            return timed
+        return make_step
+    TD.make_preprocessor = make_pre
+    TD.make_db_train_step = wrap(made[1])
+    TD.make_db_lora_train_step = wrap(made[2])
+    TD.DreamBoothBatcher.next = batch_next
+    try:
+        yield
+    finally:
+        (TD.make_preprocessor, TD.make_db_train_step,
+         TD.make_db_lora_train_step, TD.DreamBoothBatcher.next) = made
+
+
+def _db_images(d: str, n: int, seed: int) -> None:
+    from editanything_tpu_torch.utils.image import write_png
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        img = _checker_image(DB_RESOLUTION, DB_RESOLUTION)
+        img[..., 2] = rng.randint(0, 256, img.shape[:2])
+        write_png(os.path.join(d, f"img_{i}.png"), img)
+
+
+def _db_report(tag: str, records: list, predicted: dict) -> dict:
+    """Print the iterations and check each step's launches against the
+    prediction; returns the last step's launches."""
+    def listed(key):
+        return ", ".join(f"{r[key]:.3f}" for r in records)
+    print(f"[db] {tag}: seconds per iteration {listed('iteration_s')} "
+          f"(batch {listed('fetch_s')}, preprocessor {listed('pre_s')}, step "
+          f"{listed('step_s')}); losses "
+          f"{', '.join(format(r['loss'], '.4f') for r in records)}; launches per "
+          f"step {[r['counts'] for r in records]}, per preprocessor "
+          f"{records[-1]['pre_counts']}; predicted step {predicted['step']}, "
+          f"preprocessor {predicted['preprocessor']}")
+    check(all(np.isfinite(r["loss"]) for r in records), f"{tag}: non-finite "
+                                                           f"loss")
+    for r in records:
+        for name in ("flash_attention", "group_norm_silu"):
+            check(r["counts"][name] == predicted["step"][name],
+                  f"{tag}: {name} {r['counts'][name]} launches a step, "
+                  f"predicted {predicted['step'][name]}")
+            check(r["pre_counts"][name] == predicted["preprocessor"][name],
+                  f"{tag}: {name} {r['pre_counts'][name]} launches a "
+                  f"preprocessor call, predicted "
+                  f"{predicted['preprocessor'][name]}")
+    return dict(records[-1]["counts"])
+
+
+def _params_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a.parameters(),
+                                                 b.parameters()))
+
+
+def _open_local_group():
+    """A one-rank nccl process group over localhost (the card is one
+    device: world size 1)."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    return dist.group.WORLD
+
+
+def write_bundle_files(bundle, d: str, controlnets, dtype=torch.float16):
+    """A bundle as the files a bundle spec names (diffusers / HF layouts,
+    `.safetensors` in `dtype`) and its tokenizer's merges; returns the
+    spec's file entries."""
+    from editanything_tpu_torch.checkpoints.safetensors_io import save_file
+
+    def write(name, sd):
+        path = os.path.join(d, name)
+        save_file({k: v.detach().to(dtype).contiguous()
+                   for k, v in sd.items()}, path)
+        return path
+    tok = bundle.tokenizer
+    merges = os.path.join(d, "merges.txt")
+    with open(merges, "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(
+            " ".join(p) for p in sorted(tok.bpe_ranks, key=tok.bpe_ranks.get)))
+    return {"unet": write("unet.safetensors", bundle.unet.state_dict()),
+            "vae": write("vae.safetensors", bundle.vae.state_dict()),
+            "text": write("text.safetensors", {
+                "text_model." + k: v
+                for k, v in bundle.text.state_dict().items()}),
+            "tokenizer_merges": merges,
+            "controlnets": {name: write(f"controlnet_{name}.safetensors",
+                                        bundle.controlnets[name][1]
+                                        .state_dict())
+                            for name in controlnets}}
+
+
+def db_full_and_lora(bundle, d: str, predicted: dict) -> dict:
+    """``train()`` in fp32: the full finetune for DB_STEPS steps and a
+    resume, then the LoRA variant over the same data; each iteration timed
+    and its launches checked; the LoRA run leaves the UNet bit-unchanged."""
+    from editanything_tpu_torch.train.train_dreambooth import train
+    kw = dict(instance_data_dir=os.path.join(d, "inst"),
+              instance_prompt="a photo of a cat on a sofa", bundle=bundle,
+              class_data_dir=os.path.join(d, "class"),
+              class_prompt="a photo of a cat", with_prior_preservation=True,
+              num_class_images=DB_CLASS_IMAGES, batch_size=1, lr=DB_LR,
+              resolution=DB_RESOLUTION, log_every=1, ckpt_every=100)
+    out = {}
+    records = []
+    unet_before = [p.detach().clone() for p in bundle.unet.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    with timed_db_steps(records):
+        state, t_full = _synced(train, output_dir=os.path.join(d, "full"),
+                                max_steps=DB_STEPS, **kw)
+        peak = torch.cuda.max_memory_allocated()
+        ckpt = os.path.join(d, "full", "ckpt", f"step_{DB_STEPS}.pt")
+        ckpt_bytes = os.path.getsize(ckpt)
+        changed = sum(not torch.equal(a, b) for a, b in
+                      zip(unet_before, state.unet.parameters()))
+        check(state.step == DB_STEPS and changed == len(unet_before),
+              f"full finetune: step {state.step}, {changed} of "
+              f"{len(unet_before)} UNet tensors changed")
+        del state
+        torch.cuda.empty_cache()
+        resumed, t_resume = _synced(train, output_dir=os.path.join(d, "full"),
+                                    max_steps=DB_STEPS + 1, **kw)
+        check(resumed.step == DB_STEPS + 1, f"resume at {resumed.step}")
+        del resumed
+        torch.cuda.empty_cache()
+    check(all(torch.equal(a, b) for a, b in
+              zip(unet_before, bundle.unet.parameters())),
+          "the full finetune changed the bundle's own UNet")
+    print(f"[db] full finetune (fp32, batch 1 + 1 class image at "
+          f"{DB_RESOLUTION}^2, AdamW): {DB_STEPS} steps in {t_full:.1f} s, a "
+          f"resume to step {DB_STEPS + 1} in {t_resume:.1f} s; peak "
+          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); a "
+          f"checkpoint {ckpt_bytes / 2**30:.2f} GiB; every UNet tensor "
+          f"changed, the bundle's own unchanged")
+    out["dreambooth step"] = _db_report("full finetune", records, predicted)
+    out["dreambooth preprocessor"] = dict(records[-1]["pre_counts"])
+    shutil.rmtree(os.path.join(d, "full"), ignore_errors=True)
+
+    records.clear()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_db_steps(records):
+        lora, t_lora = _synced(train, output_dir=os.path.join(d, "lora"),
+                               max_steps=DB_STEPS, use_lora=True,
+                               lora_rank=DB_LORA_RANK, **kw)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(torch.equal(a, b) for a, b in
+              zip(unet_before, bundle.unet.parameters())),
+          "the LoRA run changed the frozen UNet")
+    ups = [d_["up"] for d_ in lora.deltas.tree().values()]
+    check(lora.step == DB_STEPS and all(bool(u.abs().max() > 0) for u in ups),
+          "LoRA: an up stayed zero")
+    n = sum(p.numel() for p in lora.deltas.parameters())
+    print(f"[db] LoRA rank {DB_LORA_RANK} ({len(ups)} projections, "
+          f"{n / 1e6:.2f} M parameters): {DB_STEPS} steps in {t_lora:.1f} s, "
+          f"peak {peak / 2**30:.2f} GiB; the frozen UNet bit-unchanged "
+          f"(every tensor torch.equal), every up moved")
+    out["dreambooth lora step"] = _db_report("LoRA", records, predicted)
+    del lora, unet_before
+    shutil.rmtree(os.path.join(d, "lora"), ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def db_with_a_group(bundle, d: str, group) -> None:
+    """One DreamBooth step (full finetune) with the one-rank group and one
+    without, from the same start: equal to the bit (cuDNN deterministic)."""
+    from editanything_tpu_torch.train.train_dreambooth import train
+    kw = dict(instance_data_dir=os.path.join(d, "inst"),
+              instance_prompt="a photo of a cat on a sofa", bundle=bundle,
+              class_data_dir=os.path.join(d, "class"),
+              class_prompt="a photo of a cat", with_prior_preservation=True,
+              num_class_images=DB_CLASS_IMAGES, batch_size=1, lr=DB_LR,
+              resolution=DB_RESOLUTION, max_steps=1, ckpt_every=100)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        plain = train(output_dir=os.path.join(d, "plain"), **kw)
+        shutil.rmtree(os.path.join(d, "plain"), ignore_errors=True)
+        ddp, seconds = _synced(train, output_dir=os.path.join(d, "ddp"),
+                               group=group, **kw)
+        shutil.rmtree(os.path.join(d, "ddp"), ignore_errors=True)
+    check(_params_equal(plain.unet, ddp.unet),
+          "DreamBooth: the step in a one-rank group differs from the plain "
+          "step")
+    print(f"[db] one DreamBooth step (full finetune) in a one-rank nccl group "
+          f"({seconds:.2f} s) equals the step without it to the bit")
+    del plain, ddp
+    torch.cuda.empty_cache()
+
+
+def controlnet_with_a_group(bundle, d: str, group) -> None:
+    """One ControlNet ``train()`` step with the one-rank group and one
+    without, from the same start and data: equal to the bit."""
+    from editanything_tpu_torch.train.train_controlnet import train
+    data = os.path.join(d, "sa1b")
+    os.makedirs(data)
+    write_sa1b_folder(data)
+    kw = dict(data_path=data, txt_path=os.path.join(data, "data.txt"),
+              bundle=bundle, batch_size=2, resolution=512, max_steps=1,
+              use_ema=False, image_every=100, ckpt_every=100)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        plain = train(out_dir=os.path.join(d, "cn_plain"), **kw)
+        shutil.rmtree(os.path.join(d, "cn_plain"), ignore_errors=True)
+        ddp, seconds = _synced(train, out_dir=os.path.join(d, "cn_ddp"),
+                               group=group, **kw)
+        shutil.rmtree(os.path.join(d, "cn_ddp"), ignore_errors=True)
+    check(_params_equal(plain.controlnet, ddp.controlnet),
+          "ControlNet: the step in a one-rank group differs from the plain "
+          "step")
+    print(f"[db] one ControlNet train() step in a one-rank nccl group "
+          f"({seconds:.2f} s) equals the step without it to the bit")
+    del plain, ddp
+    torch.cuda.empty_cache()
+
+
+def cli_edit(bundle, d: str) -> dict:
+    """The command line's ``edit`` with no mask (the AMG runs kernels D and
+    C) on full-width files: the bundle in fp16 and SAM ViT-H's fp32 ``.pth``,
+    written here and loaded by ``_build_editor`` in bf16."""
+    from editanything_tpu_torch.apps.cli import main
+    from editanything_tpu_torch.models import sam as SAM
+    from editanything_tpu_torch.pipelines.bundle import random_sam
+    from editanything_tpu_torch.utils.image import read_image, write_png
+    t0 = time.perf_counter()
+    spec = write_bundle_files(bundle, d, ("sam", "inpaint"))
+    sam = random_sam(SAM.sam_vit_h(), device="cuda", dtype=torch.float32,
+                     generator=torch.Generator("cuda").manual_seed(41))
+    spec["sam"] = os.path.join(d, "sam_vit_h.pth")
+    torch.save({k: v.cpu() for k, v in sam.state_dict().items()}, spec["sam"])
+    del sam
+    nbytes = sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d))
+    with open(os.path.join(d, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    write_png(os.path.join(d, "image.png"), _checker_image(512, 512))
+    print(f"[cli] wrote {nbytes / 2**30:.2f} GiB of full-width files (the "
+          f"SD1.5 bundle in fp16, two ControlNets, SAM ViT-H fp32) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    _, seconds = _synced(main, [
+        "edit", "--bundle-spec", os.path.join(d, "spec.json"), "--image",
+        os.path.join(d, "image.png"), "--output", os.path.join(d, "out"),
+        "--resolution", "512", "--steps", str(CLI_EDIT_STEPS), "--device",
+        "cuda"])
+    counts, peak = _counts(), torch.cuda.max_memory_allocated()
+    img = read_image(os.path.join(d, "out_0.png"))
+    predicted = CLI_EDIT_STEPS * 60 + 2 + 32
+    print(f"[cli] edit from the spec (load bf16, SAM ViT-H at 1024^2, the AMG, "
+          f"the ID map, 1 sample, {CLI_EDIT_STEPS} steps at 512^2): "
+          f"{seconds:.2f} s including the load; peak {peak / 2**30:.2f} GiB; "
+          f"launches {counts} (B predicted {predicted}: {CLI_EDIT_STEPS} x "
+          f"(32 UNet + 2 x 14 ControlNet) + 2 VAE + 32 SAM); output "
+          f"{img.shape} {img.dtype}")
+    check(img.shape == (512, 512, 3) and img.dtype == np.uint8,
+          f"cli edit output {img.shape}")
+    check(counts["flash_attention"] == predicted,
+          f"cli edit: B {counts['flash_attention']}, predicted {predicted}")
+    check(counts["sam_twoway"] > 0 and counts["sam_upscale_hyper"] > 0,
+          f"cli edit: D and C did not launch: {counts}")
+    return counts
+
+
+def cli_tiny_tools(d: str) -> None:
+    """``train-dreambooth --bundle-spec`` on tiny files and ``add-control``
+    on a tiny written SD checkpoint, through the command line in-process."""
+    import dataclasses
+    from editanything_tpu_torch.apps.cli import main
+    from editanything_tpu_torch.checkpoints import ldm as LDM
+    from editanything_tpu_torch.pipelines.bundle import random_bundle
+    tb = random_bundle(tiny=True, device="cuda", family="sd15_inpaint",
+                       controlnet_names=(),
+                       generator=torch.Generator("cuda").manual_seed(8))
+    # bf16 files and the spec's default dtype (bf16): the trained copy is
+    # fp32 all the same, so steps of the default rate (5e-6) move it
+    spec = write_bundle_files(tb, d, (), dtype=torch.bfloat16)
+    spec.update(configs={
+        name: json.loads(json.dumps(dataclasses.asdict(cfg)))
+        for name, cfg in (("unet", tb.unet_cfg), ("vae", tb.vae_cfg),
+                          ("text", tb.text_cfg))})
+    with open(os.path.join(d, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    _db_images(os.path.join(d, "inst"), 2, 9)
+    state, seconds = _synced(main, [
+        "train-dreambooth", "--bundle-spec", os.path.join(d, "spec.json"),
+        "--instance-data-dir", os.path.join(d, "inst"), "--instance-prompt",
+        "a photo of a cat", "--output-dir", os.path.join(d, "db"),
+        "--max-train-steps", "2", "--resolution", "64", "--device", "cuda"])
+    saved = torch.load(os.path.join(d, "db", "unet.pt"), weights_only=True)
+    start = {k: v.to(torch.bfloat16).float().cpu()
+             for k, v in tb.unet.state_dict().items()}
+    moved = (sum(int((saved[k] != v).sum()) for k, v in start.items())
+             / sum(v.numel() for v in start.values()))
+    check(state.step == 2 and sorted(saved) == sorted(start)
+          and all(v.dtype == torch.float32 and torch.isfinite(v).all()
+                  for v in saved.values()) and moved > 0.5,
+          f"train-dreambooth --bundle-spec (moved {moved:.3f} of the UNet)")
+    print(f"[cli] train-dreambooth --bundle-spec (tiny 9-channel bf16 files, "
+          f"the default lr 5e-6, 2 steps at 64^2): {seconds:.2f} s, unet.pt "
+          f"fp32 and finite, {moved:.4f} of its elements moved")
+
+    sd_path = os.path.join(d, "sd.ckpt")
+    cpu = lambda m: {k: v.cpu() for k, v in m.state_dict().items()}
+    torch.save({"state_dict": LDM.state_dicts_to_ldm(
+        unet=cpu(tb.unet), vae=cpu(tb.vae), text=cpu(tb.text),
+        layers_per_block=1)}, sd_path)
+    _, seconds = _synced(main, ["add-control", "--input", sd_path, "--output",
+                                os.path.join(d, "cldm.ckpt")])
+    out = torch.load(os.path.join(d, "cldm.ckpt"), weights_only=True)[
+        "state_dict"]
+    src = torch.load(sd_path, weights_only=True)["state_dict"]
+    ctrl = [k for k in out if k.startswith("control_model.")]
+    copied = [k for k in ctrl
+              if "model.diffusion_model." + k[len("control_model."):] in src]
+    check(len(copied) > 0 and all(torch.equal(
+        out[k], src["model.diffusion_model." + k[len("control_model."):]])
+        for k in copied), "add-control: the grafted branch")
+    print(f"[cli] add-control on a written tiny SD checkpoint: {len(ctrl)} "
+          f"control_model keys, {len(copied)} copied from the UNet, in "
+          f"{seconds:.2f} s")
+    del tb
+
+
+def phase_dreambooth_and_apps() -> dict:
+    """Phase 6: DreamBooth-inpaint at the published SD1.5 widths (random
+    weights): the class images in bf16, the full finetune and LoRA in fp32;
+    the one-rank nccl group around a ControlNet and a DreamBooth step; the
+    command line in-process. Returns each path's launches."""
+    import tempfile
+    import torch.distributed as dist
+    from editanything_tpu_torch.pipelines.bundle import random_bundle
+    from editanything_tpu_torch.train.train_dreambooth import \
+        generate_class_images
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=REPO) as d:
+        # the class images, bf16, through the 9-channel UNet
+        b16 = random_bundle(tiny=False, device="cuda", dtype=torch.bfloat16,
+                            family="sd15_inpaint", controlnet_names=(),
+                            generator=torch.Generator("cuda").manual_seed(6))
+        predicted = db_predicted_launches(b16)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        n, seconds = _synced(
+            generate_class_images, b16, class_dir=os.path.join(d, "class"),
+            class_prompt="a photo of a cat", num_class_images=DB_CLASS_IMAGES,
+            resolution=DB_RESOLUTION, num_steps=DB_CLASS_STEPS,
+            batch_size=DB_CLASS_IMAGES)
+        counts, peak = _counts(), torch.cuda.max_memory_allocated()
+        print(f"[db] generate_class_images (9-channel SD1.5 inpaint, bf16, "
+              f"{DB_CLASS_IMAGES} images of {DB_RESOLUTION}^2 in one batch, "
+              f"{DB_CLASS_STEPS} UniPC steps, CFG 7.5): {n} JPEGs in "
+              f"{seconds:.2f} s; peak {peak / 2**30:.2f} GiB; launches "
+              f"{counts}, predicted {predicted['class batch']}")
+        check(n == DB_CLASS_IMAGES and len(os.listdir(
+            os.path.join(d, "class"))) == DB_CLASS_IMAGES, "class images")
+        for name, want in predicted["class batch"].items():
+            check(counts[name] == want, f"class images: {name} {counts[name]}"
+                                        f", predicted {want}")
+        launches["class images (a batch of 2)"] = counts
+        del b16
+        torch.cuda.empty_cache()
+
+        # the finetunes, fp32
+        _db_images(os.path.join(d, "inst"), 2, 5)
+        t0 = time.perf_counter()
+        bundle = random_bundle(tiny=False, device="cuda", dtype=torch.float32,
+                               family="sd15_inpaint", controlnet_names=(),
+                               generator=torch.Generator("cuda").manual_seed(6))
+        print(f"[db] SD1.5 with the 9-channel inpaint UNet at published "
+              f"widths, fp32, random weights (seed 6): UNet "
+              f"{sum(p.numel() for p in bundle.unet.parameters()) / 1e6:.1f} M "
+              f"parameters, built in {time.perf_counter() - t0:.1f} s")
+        launches.update(db_full_and_lora(bundle, d, predicted))
+
+        group = _open_local_group()
+        try:
+            db_with_a_group(bundle, d, group)
+            del bundle
+            torch.cuda.empty_cache()
+            cn_bundle = random_bundle(
+                tiny=False, device="cuda", dtype=torch.float32,
+                generator=torch.Generator("cuda").manual_seed(5),
+                controlnet_names=("sam", "inpaint"))
+            controlnet_with_a_group(cn_bundle, d, group)
+        finally:
+            dist.destroy_process_group()
+
+        # the command line
+        os.makedirs(os.path.join(d, "cli"))
+        launches["cli edit (1 sample, 10 steps)"] = cli_edit(
+            cn_bundle, os.path.join(d, "cli"))
+        del cn_bundle
+        torch.cuda.empty_cache()
+        os.makedirs(os.path.join(d, "tiny"))
+        cli_tiny_tools(os.path.join(d, "tiny"))
+    print(f"[db] phase 6: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the GPU port only",
@@ -4021,6 +4524,7 @@ def main() -> int:
     training["textual inversion bf16 (1 step)"] = bf16_ti
     train_rows = training.pop("train attention rows")
     mode_launches.update(training)
+    mode_launches.update(phase_dreambooth_and_apps())
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "editanything_tpu"))
     check(not foreign, f"the port loaded {foreign}")

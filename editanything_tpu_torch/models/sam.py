@@ -243,7 +243,8 @@ class PromptEncoder(nn.Module):
         self.not_a_point_embed = nn.Embedding(1, d)
         self.no_mask_embed = nn.Embedding(1, d)
         # mask prompts: built so the official state dict loads strictly;
-        # their forward is not ported (ROADMAP Queue 1 item 7)
+        # no forward runs them, as no function of the JAX package does
+        # (editanything_tpu/models/sam.py:314-323)
         self.mask_downscaling = nn.Sequential(
             nn.Conv2d(1, 4, 2, 2), LayerNorm2d(4), nn.GELU(),
             nn.Conv2d(4, 16, 2, 2), LayerNorm2d(16), nn.GELU(),

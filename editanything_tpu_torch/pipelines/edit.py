@@ -50,8 +50,8 @@ class EditPipeline(GenerationPipeline):
 
     def __init__(self, bundle: ModelBundle,
                  controls: Sequence[str] = ("sam", "inpaint"),
-                 inpaint_mode: str = "blend"):
-        super().__init__(bundle, controlnet=controls[0])
+                 inpaint_mode: str = "blend", group=None):
+        super().__init__(bundle, controlnet=controls[0], group=group)
         self.controls = tuple(controls)
         self.inpaint_mode = inpaint_mode
 
@@ -246,10 +246,9 @@ class EditPipeline(GenerationPipeline):
 
         params = {"unet": b.unet,
                   "controlnets": b.controlnet_modules(self.controls)}
-        out = denoise(params, latents.to(b.dtype), context, inputs)
-        if return_latents:
-            return out.float().permute(0, 2, 3, 1).cpu().numpy()
-        return self.decode(out)
+        out = self.run_denoise(denoise, params, latents.to(b.dtype), context,
+                               inputs)
+        return self.finish(out, return_latents)
 
     # -- tile refinement ---------------------------------------------------
 
@@ -300,5 +299,6 @@ class EditPipeline(GenerationPipeline):
         }
         params = {"unet": b.unet,
                   "controlnets": b.controlnet_modules((tile_control,))}
-        out = self.decode(denoise(params, latents.to(b.dtype), context, inputs))
+        out = self.finish(self.run_denoise(denoise, params, latents.to(b.dtype),
+                                           context, inputs))
         return [out[i] for i in range(s)]

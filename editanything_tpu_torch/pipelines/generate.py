@@ -14,6 +14,13 @@ from an explicit ``generator``. Decoded images pass the bundle's safety
 checker, where one is loaded, as every pipeline's of the JAX package do
 (edit.py:276, :348, generate.py:227, img2img.py:104); its flags are
 ``last_nsfw``.
+
+Data parallelism (``group=``, a ``torch.distributed`` group; JAX's
+``mesh=``): every rank builds the request's inputs and draws its noise for
+the whole batch, denoises and decodes its contiguous slice of the samples
+(``shard_denoise_inputs``), and the uint8 images are gathered back in
+order, so N ranks return what one process returns. The batch
+(`num_samples`) must divide by the ranks.
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ import torch
 from editanything_tpu_torch.engine import prompts as P
 from editanything_tpu_torch.engine.denoise import DenoiseConfig, build_denoiser
 from editanything_tpu_torch.models.vae import _scale_factor
+from editanything_tpu_torch.parallel.sharding import (gather_batch,
+                                                      rank_and_size,
+                                                      replicate, shard_batch)
 from editanything_tpu_torch.pipelines.bundle import ModelBundle
 from editanything_tpu_torch.samplers.schedule import make_timesteps
 from editanything_tpu_torch.utils.image import HWC3, resize_bilinear, resize_image
@@ -35,6 +45,30 @@ def to_uint8(img_f32: np.ndarray) -> np.ndarray:
     """[-1, 1] float -> uint8."""
     return np.clip((np.asarray(img_f32, np.float32) + 1.0) * 127.5,
                    0, 255).astype(np.uint8)
+
+
+# the per-sample inputs of engine/denoise.py's loop and their batch axes
+# (the others, "ref_mask" and the scalars, are shared by every sample)
+_BATCH_AXES = {"mask": 0, "image_latents": 0, "masked_image_latents": 0,
+               "noise": 0, "ref_image_latents": 0, "ref_context": 0,
+               "step_noise": 1, "eta_noise": 1}
+_BATCH_LISTS = ("controlnet_conds", "controlnet_scale_maps",
+                "ref_controlnet_conds")
+
+
+def shard_denoise_inputs(latents, context, inputs, group):
+    """This rank's slice of the samples of one denoise call: the initial
+    latents, the contexts and every per-sample input."""
+    def cut(x, axis=0):
+        return None if x is None else shard_batch(x, group, axis=axis)
+    inputs = dict(inputs)
+    for key, axis in _BATCH_AXES.items():
+        if key in inputs:
+            inputs[key] = cut(inputs[key], axis)
+    for key in _BATCH_LISTS:
+        if key in inputs:
+            inputs[key] = [cut(x) for x in inputs[key]]
+    return cut(latents), {k: cut(v) for k, v in context.items()}, inputs
 
 
 class GenerationPipeline:
@@ -47,9 +81,16 @@ class GenerationPipeline:
     vae_tile_latent = 128        # latent-px decode tile -> 1024^2 image tiles
     vae_tile_overlap = 32
 
-    def __init__(self, bundle: ModelBundle, controlnet: str = "sam"):
+    def __init__(self, bundle: ModelBundle, controlnet: str = "sam",
+                 group=None):
         self.bundle = bundle
         self.controlnet = controlnet
+        # data parallelism over the samples; None: this process alone
+        self.group = group
+        if rank_and_size(group)[1] > 1:
+            for m in [bundle.unet, bundle.vae, bundle.text] + [
+                    net for _, net in bundle.controlnets.values()]:
+                replicate(m, group)
         # non-finite values in the last decoded batch, before the uint8 cast
         self.last_nonfinite = None
         # per-image NSFW flags of the last call; None: no checker is loaded
@@ -138,6 +179,31 @@ class GenerationPipeline:
                              f"needs {want}")
         return out
 
+    def run_denoise(self, denoise, params, latents, context, inputs):
+        """`denoise` over this rank's slice of the samples (all of them
+        without a group)."""
+        if self.group is not None:
+            latents, context, inputs = shard_denoise_inputs(
+                latents, context, inputs, self.group)
+        return denoise(params, latents, context, inputs)
+
+    def finish(self, out, return_latents: bool = False) -> np.ndarray:
+        """A denoise call's final latents -> (B, H, W, 3) uint8 images
+        (``decode``), or with `return_latents` (B, h, w, 4) fp32 latents,
+        every rank's gathered in order."""
+        if return_latents:
+            out = gather_batch(out.float(), self.group)
+            return out.permute(0, 2, 3, 1).cpu().numpy()
+        imgs = self.decode(out)
+        if self.group is None:
+            return imgs
+        device = self.bundle.device
+        if self.last_nsfw is not None:
+            self.last_nsfw = gather_batch(torch.as_tensor(
+                np.asarray(self.last_nsfw)).to(device), self.group).cpu().numpy()
+        return gather_batch(torch.from_numpy(imgs).to(device),
+                            self.group).cpu().numpy()
+
     def decode(self, latents) -> np.ndarray:
         """Final latents -> (B, H, W, 3) uint8 images, tiled above the
         one-shot bound, counting non-finite values before the cast, then
@@ -198,7 +264,6 @@ class GenerationPipeline:
                                        seed=seed)
         params = {"unet": b.unet,
                   "controlnets": b.controlnet_modules((self.controlnet,))}
-        out = denoise(params, latents.to(b.dtype), context, inputs)
-        if return_latents:
-            return out.float().permute(0, 2, 3, 1).cpu().numpy()
-        return self.decode(out)
+        out = self.run_denoise(denoise, params, latents.to(b.dtype), context,
+                               inputs)
+        return self.finish(out, return_latents)

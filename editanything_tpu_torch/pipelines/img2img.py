@@ -69,4 +69,6 @@ class Img2ImgPipeline(GenerationPipeline):
                                    seed=seed)
         latents = stochastic_encode(schedule, z, int(ts[0]), eps)
         params = {"unet": b.unet, "controlnets": b.controlnet_modules(controls)}
-        return self.decode(denoise(params, latents.to(b.dtype), context, inputs))
+        return self.finish(self.run_denoise(denoise, params,
+                                            latents.to(b.dtype), context,
+                                            inputs))

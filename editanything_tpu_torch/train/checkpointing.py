@@ -19,25 +19,34 @@ from typing import Optional
 
 import torch
 
+from editanything_tpu_torch.train.logging import is_main_process
+
 _STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
 
 
 class CheckpointManager:
     """Save and restore train states (anything with ``state_dict`` and
     ``load_state_dict``, or a plain dict of tensors) by step, keeping the
-    newest ``max_to_keep``."""
+    newest ``max_to_keep``. Under data parallelism every rank restores and
+    only the main one (`is_main`, default rank 0 of an initialised
+    ``torch.distributed``) writes."""
 
     def __init__(self, directory: str, *, max_to_keep: int = 3,
-                 save_interval_steps: int = 1000):
+                 save_interval_steps: int = 1000,
+                 is_main: Optional[bool] = None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = save_interval_steps
-        os.makedirs(self.directory, exist_ok=True)
+        self.is_main = is_main_process() if is_main is None else is_main
+        if self.is_main:
+            os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step}.pt")
 
     def all_steps(self):
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(m.group(1)) for m in map(
             _STEP_FILE.match, os.listdir(self.directory)) if m)
 
@@ -51,7 +60,9 @@ class CheckpointManager:
     def save(self, step: int, state) -> None:
         """Write the step's file (through a temporary name, so a cut write
         leaves no partial checkpoint), then drop the oldest beyond
-        ``max_to_keep``."""
+        ``max_to_keep``; nothing on a rank that is not the main one."""
+        if not self.is_main:
+            return
         sd = state.state_dict() if hasattr(state, "state_dict") else state
         tmp = self._path(step) + ".tmp"
         torch.save(sd, tmp)

@@ -35,26 +35,28 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from editanything_tpu_torch.parallel.sharding import unwrap
 from editanything_tpu_torch.samplers.schedule import NoiseSchedule
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The trainable ControlNet, its optimizer, the step and the LitEma
-    shadow (ldm/modules/ema.py:5; None without EMA)."""
+    """The trainable ControlNet (in a DDP wrap under data parallelism),
+    its optimizer, the step and the LitEma shadow (ldm/modules/ema.py:5;
+    None without EMA)."""
     controlnet: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     ema: Optional[nn.Module] = None
 
     def state_dict(self) -> dict:
-        return {"params": self.controlnet.state_dict(),
+        return {"params": unwrap(self.controlnet).state_dict(),
                 "opt_state": self.optimizer.state_dict(),
                 "step": int(self.step),
                 "ema": None if self.ema is None else self.ema.state_dict()}
 
     def load_state_dict(self, sd: dict) -> None:
-        self.controlnet.load_state_dict(sd["params"])
+        unwrap(self.controlnet).load_state_dict(sd["params"])
         self.optimizer.load_state_dict(sd["opt_state"])
         self.step = int(sd["step"])
         if self.ema is not None and sd["ema"] is not None:
@@ -241,7 +243,7 @@ def make_train_step(schedule: NoiseSchedule, *,
                                 if p.grad is not None)
         state.optimizer.step()
         if state.ema is not None:
-            ema_update(state.ema, state.controlnet, state.step)
+            ema_update(state.ema, unwrap(state.controlnet), state.step)
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": grad_norm.detach()}
 

@@ -6,8 +6,14 @@ grids every 300 steps; cldm/cldm.py:416-423: the control branch trained,
 the base frozen). The VAE and CLIP encodes run in the preprocessor under
 ``torch.no_grad`` (the reference does them in ``get_input``,
 cldm/cldm.py:318-326); torch checkpoints (train/checkpointing.py), JSONL
-metrics and PNG grids replace Lightning's. One process on one device:
-data parallelism (the reference's 8-GPU DDP) is not ported yet.
+metrics and PNG grids replace Lightning's. Data parallelism is the
+reference's DDP (parallel/sharding.py): given a process group, or under
+an initialised ``torch.distributed`` (a ``torchrun`` launch), every rank
+draws the crops and flips of the same global batch and decodes only its
+slice, the ControlNet trains in a DDP wrap, the noise and timesteps are
+drawn for the global batch and sliced, and rank 0 alone writes metrics,
+grids, checkpoints and the export. Where JAX lays the ControlNet out by TP/FSDP on a mesh
+(train_controlnet.py:124-131), every rank here holds all of it.
 
 Everything runs outside the pipelines' ``torch.inference_mode``: tensors
 made there cannot enter autograd, so the trainer builds its own.
@@ -21,10 +27,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from editanything_tpu_torch.parallel.sharding import (
+    data_parallel, default_group, init_from_env, is_main, mean_over,
+    rank_and_size, shard_batch, unwrap)
 from editanything_tpu_torch.samplers.schedule import (make_schedule,
                                                       make_timesteps)
 from editanything_tpu_torch.train.checkpointing import CheckpointManager
-from editanything_tpu_torch.train.controlnet_train import (init_train_state,
+from editanything_tpu_torch.train.controlnet_train import (draw_t_noise,
+                                                           init_train_state,
                                                            make_optimizer,
                                                            make_train_step)
 from editanything_tpu_torch.train.logging import ImageLogger, MetricLogger
@@ -38,6 +48,17 @@ def nchw(x, device, dtype=torch.float32) -> torch.Tensor:
 
 def nhwc(x: torch.Tensor) -> np.ndarray:
     return x.float().permute(0, 2, 3, 1).cpu().numpy()
+
+
+def global_t_noise(schedule, latents, generator, group, blocks: int = 1):
+    """A step's timesteps and noise drawn for the global batch (t first,
+    then the noise, as the step itself draws them) and sliced to this
+    rank's shard of `latents`."""
+    size = rank_and_size(group)[1]
+    whole = latents.new_empty((latents.shape[0] * size,) + latents.shape[1:])
+    t, noise = draw_t_noise(schedule, whole, generator)
+    return (shard_batch(t, group, blocks=blocks),
+            shard_batch(noise, group, blocks=blocks))
 
 
 def make_preprocessor():
@@ -92,7 +113,7 @@ def train(*, data_path: str, txt_path: str, out_dir: str, bundle=None,
           ckpt_every: int = 1000, seed: int = 0, remat=True,
           use_ema: bool = True, config_yaml=None, sample_steps: int = 20,
           sample_guidance: float = 9.0, export_path: Optional[str] = None,
-          device="cuda"):
+          device="cuda", group=None):
     """Train the bundle's "sam" ControlNet on an SA-1B-layout folder.
     `bundle` supplies the frozen UNet, VAE and text tower and the
     ControlNet's initial weights (default: ``random_bundle`` at the
@@ -112,7 +133,12 @@ def train(*, data_path: str, txt_path: str, out_dir: str, bundle=None,
     - a checkpoint every `ckpt_every` steps and at the end; a run finds the
       latest in ``out_dir/ckpt`` and resumes from it;
     - export_path: the final ControlNet (EMA weights with EMA) as a
-      diffusers-layout ``.safetensors``."""
+      diffusers-layout ``.safetensors``;
+    - group: the ``torch.distributed`` group of data parallelism (default:
+      the default group when one is initialised, else none): each rank
+      takes its slice of every global batch of `batch_size`, which must
+      divide by the ranks, and the ControlNet trains in a DDP wrap. N
+      ranks train as one process on the whole batch does."""
     from editanything_tpu_torch.data import SAMDataset, make_batcher
 
     if bundle is None:
@@ -138,10 +164,15 @@ def train(*, data_path: str, txt_path: str, out_dir: str, bundle=None,
                                  guidance_scale=sample_guidance)
 
     dataset = SAMDataset(data_path, txt_path, resolution=resolution, seed=seed)
-    metrics_log = MetricLogger(out_dir, every=log_every)
-    image_log = ImageLogger(out_dir, every=image_every)
-    ckpt = CheckpointManager(out_dir + "/ckpt", save_interval_steps=ckpt_every)
+    group = default_group(group)
+    main = is_main(group)
+    metrics_log = MetricLogger(out_dir, every=log_every, is_main=main)
+    image_log = ImageLogger(out_dir, every=image_every, is_main=main)
+    ckpt = CheckpointManager(out_dir + "/ckpt", save_interval_steps=ckpt_every,
+                             is_main=main)
     ckpt.restore(state)
+    if group is not None:
+        state.controlnet = data_parallel(state.controlnet, group)
 
     generator = torch.Generator(dev).manual_seed(seed)
     ctx_len = bundle.text_cfg.max_position_embeddings
@@ -164,7 +195,7 @@ def train(*, data_path: str, txt_path: str, out_dir: str, bundle=None,
         grids = {"input": batch["jpg"], "hint": batch["hint"],
                  "reconstruction": nhwc(bundle.vae.decode_from_latents(
                      latents.to(dtype))),
-                 "samples": nhwc(sample(bundle.unet, state.controlnet,
+                 "samples": nhwc(sample(bundle.unet, unwrap(state.controlnet),
                                         bundle.vae, noise, ctx, hint))}
         if state.ema is not None:
             grids["samples_ema"] = nhwc(sample(bundle.unet, state.ema,
@@ -174,27 +205,31 @@ def train(*, data_path: str, txt_path: str, out_dir: str, bundle=None,
     step = state.step
     while step < max_steps:
         for batch in make_batcher(dataset, batch_size=batch_size,
-                                  seed=seed + step):
+                                  seed=seed + step,
+                                  part=rank_and_size(group)):
             latents, context = pre(bundle.vae, bundle.text,
                                    nchw(batch["jpg"], dev, dtype),
                                    token_ids(batch["txt"]))
             if val is None:
                 val = (batch, latents, context)
+            latents = latents.to(dtype)
+            t, noise = global_t_noise(schedule, latents, generator, group)
             state, m = train_step(
                 state, bundle.unet,
-                {"latents": latents.to(dtype), "context": context.to(dtype),
-                 "hint": nchw(batch["hint"], dev, dtype)},
-                generator=generator)
+                {"latents": latents, "context": context.to(dtype),
+                 "hint": nchw(batch["hint"], dev, dtype)}, t=t, noise=noise)
+            m["loss"] = mean_over(m["loss"], group)
             step = state.step
             metrics_log.log(step, m)
-            if step % image_log.every == 0:
+            if image_log.is_main and step % image_log.every == 0:
                 image_log.maybe_log(step, sample_grids(*val))
             ckpt.maybe_save(step, state)
             if step >= max_steps:
                 break
     ckpt.save(step, state)
     ckpt.close()
-    if export_path:
+    state.controlnet = unwrap(state.controlnet)
+    if export_path and main:
         export_controlnet(state.ema if state.ema is not None
                           else state.controlnet, export_path)
     return state
@@ -214,13 +249,15 @@ def main(argv=None):
     p.add_argument("--no-ema", action="store_true")
     p.add_argument("--export-path", default=None,
                    help="final (EMA) ControlNet as diffusers safetensors")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default="cuda",
+                   help="under torchrun: cuda:<LOCAL_RANK> of each rank")
     args = p.parse_args(argv)
+    device = init_from_env(args.device)
     train(data_path=args.data_path, txt_path=args.txt_path,
           out_dir=args.out_dir, batch_size=args.batch_size, lr=args.lr,
           max_steps=args.max_steps, resolution=args.resolution,
           config_yaml=args.config_yaml, use_ema=not args.no_ema,
-          export_path=args.export_path, device=args.device)
+          export_path=args.export_path, device=device)
 
 
 if __name__ == "__main__":

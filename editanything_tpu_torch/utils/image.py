@@ -8,7 +8,8 @@ filters, BICUBIC (the safety checker's resize) and BILINEAR (the
 detectors') at a given size.
 ``write_png`` writes an 8-bit RGB PNG with ``zlib`` alone, and
 ``read_image`` reads one (8-bit gray, gray + alpha, RGB or RGBA, any of
-the five row filters) the same way; any other file goes through PIL,
+the five row filters) the same way, and ``image_size`` reads a PNG's size
+from its header; any other file goes through PIL,
 imported for it alone, so the training data needs no PIL on a machine
 without it. ``resize_pil(..., "nearest")`` is PIL's NEAREST (the SAM
 condition's resize in the training data).
@@ -268,6 +269,20 @@ def read_image(path: str) -> np.ndarray:
                           f"decoded without it)") from e
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
+
+
+def image_size(path: str) -> Tuple[int, int]:
+    """(height, width) of an image file, as ``read_image(path).shape[:2]``
+    gives it, from its header alone: a PNG's IHDR, any other file through
+    PIL (imported here only), which opens images lazily."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head.startswith(_PNG_SIGNATURE) and head[12:16] == b"IHDR":
+        w, h = struct.unpack(">II", head[16:24])
+        return h, w
+    from PIL import Image
+    with Image.open(path) as im:
+        return im.height, im.width
 
 
 def write_png(path: str, image: np.ndarray) -> None:

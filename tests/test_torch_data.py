@@ -20,7 +20,8 @@ from editanything_tpu.ops import rle as JR
 from editanything_tpu_torch.data import image_folder as TIF
 from editanything_tpu_torch.data import sam_dataset as TSD
 from editanything_tpu_torch.ops import rle as TR
-from editanything_tpu_torch.utils.image import read_image, resize_pil, write_png
+from editanything_tpu_torch.utils.image import (image_size, read_image,
+                                               resize_pil, write_png)
 
 
 def _masks(seed, n=6, h=37, w=53):
@@ -198,6 +199,52 @@ def test_make_batcher_matches_jax(sa1b):
         assert g["txt"] == w["txt"]
         np.testing.assert_array_equal(g["jpg"], w["jpg"])
         np.testing.assert_array_equal(g["hint"], w["hint"])
+
+
+def test_make_batcher_any_workers_and_parts(sa1b):
+    """The crops and flips are drawn before the threads decode, so any
+    number of workers gives the JAX package's one-worker batches, and the
+    two parts of each batch (two data-parallel ranks' shares) put together
+    are the batch."""
+    kw = dict(resolution=32, seed=1)
+    path, txt = str(sa1b), str(sa1b / "data.txt")
+    want = list(JSD.make_batcher(JSD.SAMDataset(path, txt, **kw),
+                                 batch_size=2, num_workers=1, seed=4))
+    for workers, prefetch in ((1, 4), (3, 1), (8, 4)):
+        got = list(TSD.make_batcher(TSD.SAMDataset(path, txt, **kw),
+                                    batch_size=2, num_workers=workers,
+                                    prefetch=prefetch, seed=4))
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            assert g["txt"] == w["txt"]
+            np.testing.assert_array_equal(g["jpg"], w["jpg"])
+            np.testing.assert_array_equal(g["hint"], w["hint"])
+    parts = [list(TSD.make_batcher(TSD.SAMDataset(path, txt, **kw),
+                                   batch_size=2, num_workers=2, seed=4,
+                                   part=(k, 2))) for k in range(2)]
+    for w, a, b in zip(want, *parts):
+        assert a["txt"] + b["txt"] == w["txt"]
+        for key in ("jpg", "hint"):
+            assert a[key].shape[0] == b[key].shape[0] == 1
+            np.testing.assert_array_equal(
+                np.concatenate([a[key], b[key]]), w[key])
+    with pytest.raises(ValueError, match="divide"):
+        TSD.make_batcher(TSD.SAMDataset(path, txt, **kw), batch_size=3,
+                         part=(0, 2))
+
+
+def test_image_size_reads_headers(sa1b, tmp_path):
+    """``image_size`` from a PNG's IHDR or PIL's lazy open equals the
+    decoded image's size: RGB and palette PNGs and a JPEG."""
+    img = np.random.RandomState(1).randint(0, 256, (23, 41, 3)).astype(
+        np.uint8)
+    Image.fromarray(img).save(tmp_path / "a.jpg")
+    Image.fromarray(img).convert("P").save(tmp_path / "p.png")
+    paths = [str(sa1b / "im0.png"), str(sa1b / "im1.png"),
+             str(tmp_path / "a.jpg"), str(tmp_path / "p.png")]
+    for path in paths:
+        assert image_size(path) == read_image(path).shape[:2]
+    assert image_size(str(tmp_path / "a.jpg")) == (23, 41)
 
 
 def test_image_folder_matches_jax(tmp_path):
