@@ -166,7 +166,8 @@ non-zero, and nothing is caught:
      at UNet shapes in fp32 and bf16 (forward within the kernel's bound of
      the twin, gradients the twin's own, the backward being a recompute
      through it); B in fp32 at the training step's shapes (batch 2, no
-     CFG), each beside its bound at 67 TFLOP/s and SDPA in fp32; one step
+     CFG), each with its launch plan, against its planted faults, beside
+     its bound at 165 TFLOP/s (3xTF32) and SDPA in fp32; one step
      of the tiny ControlNet in fp32 on the card against the CPU, with the
      resnets composed and fused (every ControlNet tensor's gradient nonzero
      on the card); ``train()`` at the published SD1.5 widths in fp32 with
@@ -238,6 +239,12 @@ CUDA_LIBRARIES = ("flash_attention", "group_norm", "sam_twoway", "sam_upscale",
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# kernel B's fp32 products run on the tensor cores in 3xTF32 (each operand
+# split into a tf32 hi and lo, three passes: lo hi + hi lo + hi hi), so its
+# operations' peak is the dense TF32 rate over 3 (495 TFLOP/s / 3); the
+# CUDA cores' 67 TFLOP/s would put a tensor-core kernel over 100 % of its
+# bound
+PEAK_FP32_3XTF32 = 495e12 / 3
 
 # (label, B, H, N, M, Dqk, Dv, scale): UNet/ControlNet attention at 512^2
 # with 2 samples under CFG (B = 4), per resolution level; the VAE decoder's
@@ -331,7 +338,8 @@ GN_SHAPES = [
 # are 64-bit, its offsets inside a slab 32-bit)
 GN_OFFSET_SHAPE = (2, 256, 2048, 2048)
 # bounds on the max abs error against the plain twin, with their reasons:
-#  attention fp32 1e-4: exact fp32 products, sums and exp in other orders;
+#  attention fp32 1e-4: fp32 products (kernel B's in 3xTF32, within ~2^-21
+#    of fp32's), sums and exp in other orders;
 #  attention bf16 2^-6 * max|twin's output|: both sides hold fp32 sums and
 #    round the output to bf16 once, so they differ by an ulp of the output
 #    (two at most, from P rounded to bf16 unnormalised in the kernel and
@@ -561,7 +569,10 @@ def attention_faults(q, k, v, want, scale) -> dict:
     scaled by 1.05."""
     from editanything_tpu_torch.core.flash_attention import \
         flash_attention_reference as plain
+    from editanything_tpu_torch.core.flash_attention import flash_f32_plan
     m, tile = k.shape[2], key_tile(q.shape[-1], v.shape[-1])
+    if q.dtype == torch.float32:
+        tile = flash_f32_plan(*q.shape[:3], m, q.shape[-1], v.shape[-1]).kb
     keep = (m - 1) // tile * tile if m > tile else m // 2
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     return {"last key tile dropped": max_err(
@@ -752,7 +763,7 @@ def phase_kernels():
             least, by = bound_ms(*attention_work(b, h, n, m, dqk, dv,
                                                  q.element_size()),
                                  PEAK_BF16 if dtype == torch.bfloat16
-                                 else PEAK_FP32)
+                                 else PEAK_FP32_3XTF32)
             print(f"[kernel] flash_attention {tag} {label} "
                   f"{(b, h, n, m, dqk, dv)} scale={scale}: max_abs_err {err:.3e} <= "
                   f"{bound:.3e} (max|out| {want.float().abs().max().item():.3e}); "
@@ -3623,26 +3634,34 @@ def train_kernel_gradients():
 
 
 def train_attention_rows() -> dict:
-    """Kernel B in fp32 at the training step's shapes: error against the
-    twin, kernel, twin and SDPA fp32 times, and the bound at 67 TFLOP/s."""
+    """Kernel B in fp32 at the training step's shapes: its plan, error
+    against the twin (and the planted faults'), kernel, twin and SDPA fp32
+    times, and the bound at 165 TFLOP/s (3xTF32)."""
     from editanything_tpu_torch.core import flash_attention as FA
     g = torch.Generator("cuda").manual_seed(22)
     rows = {}
     for label, b, h, n, m, dqk, dv in TRAIN_ATTN_SHAPES:
         q, k, v = (torch.randn(b, h, x, d, generator=g, device="cuda")
                    for x, d in ((n, dqk), (m, dqk), (m, dv)))
-        err = max_err(FA.flash_attention(q, k, v),
-                      FA.flash_attention_reference(q, k, v))
+        want = FA.flash_attention_reference(q, k, v)
+        err = max_err(FA.flash_attention(q, k, v), want)
+        faults = attention_faults(q, k, v, want, None)
+        del want
         ms = cuda_ms(lambda: FA.flash_attention(q, k, v), 3)
         plain = cuda_ms(lambda: FA.flash_attention_reference(q, k, v), 3)
         sdpa = cuda_ms(lambda: sdpa_call(q, k, v, dqk ** -0.5), 3)
         least, by = bound_ms(*attention_work(b, h, n, m, dqk, dv, 4),
-                             PEAK_FP32)
+                             PEAK_FP32_3XTF32)
+        plan = FA.flash_f32_plan(b, h, n, m, dqk, dv)
         print(f"[train] flash_attention fp32 {label} {(b, h, n, m, dqk, dv)}: "
               f"max_abs_err {err:.3e} <= {ATTN_F32_BOUND:g}; kernel {ms:.4f} "
-              f"ms, plain {plain:.4f} ms, bound {least:.4f} ms ({by}, 67 "
-              f"TFLOP/s fp32), SDPA fp32 {sdpa:.4f} ms")
-        check(err <= ATTN_F32_BOUND, f"flash_attention fp32 {label}: {err}")
+              f"ms, plain {plain:.4f} ms, bound {least:.4f} ms ({by}, 165 "
+              f"TFLOP/s 3xTF32), SDPA fp32 {sdpa:.4f} ms; plan {plan.path}, "
+              f"{plan.warps} warps x {plan.rows} rows, {plan.splits} key "
+              f"chunk(s) of {plan.chunk}, {plan.blocks} blocks")
+        what = f"flash_attention fp32 {label}"
+        check_faults(faults, ATTN_F32_BOUND, what)
+        check(err <= ATTN_F32_BOUND, f"{what}: {err}")
         rows[label] = {"shape": [b, h, n, m, dqk, dv], "dtype": "fp32",
                        "max_abs_err": err, "ms": ms, "plain_ms": plain,
                        "bound_ms": least, "bound_by": by, "library_ms": sdpa}

@@ -5,8 +5,9 @@
 // what that kernel computes: unmasked softmax(scale * q k^T) v over
 // (B, H, N, Dqk) x (B, H, M, Dqk) x (B, H, M, Dv), with q/k allowed deeper
 // than v, keys past M masked, products in the storage dtype (bf16 on the
-// main path), P rounded to bf16 before P V, and the running max, sum and
-// output accumulator in fp32.
+// main path, P rounded to bf16 before P V; fp32 to within ~2^-21 of fp32
+// products on the tensor cores), and the running max, sum and output
+// accumulator in fp32.
 //
 // What bounds it on this card. Attention does 2 (Dqk + Dv) flops per
 // (query, key) pair against a few bytes, so no shape of the main path is
@@ -55,19 +56,40 @@
 // forms, K_{j+1} while the softmax and P_j V_j run. The grid is one block
 // per 32 query rows: 128 blocks at batch 1, 256 at batch 2.
 //
+// fp32 (every trainer's path: ControlNet, textual inversion and
+// DreamBooth run fp32 with TF32 off, and their preprocessors' VAE encode
+// takes the wide kernel). The tensor cores have no fp32 mode, so each
+// product runs in 3xTF32: every operand is split at its fragment load into
+// hi = cvt.rna.tf32(x) and lo = x - hi, and mma.sync m16n8k8 (fp32 sums)
+// forms lo * hi + hi * lo + hi * hi, within ~2^-21 of each fp32 product.
+// Three tf32 passes make the tensor cores' bound 495 / 3 = 165 TFLOP/s;
+// each operand's split costs two instructions at its load, so the issue
+// slots bound it below that. Both products use one fragment pairing (see
+// "The fragment layout" below): K and Q rows load their k8 pairs as one
+// 8-byte load, and S's accumulator is P's A operand without a shuffle.
+// Row strides of 8 (mod 16) floats for Q and K and 4 (mod 8) for V keep
+// the fragment loads off bank conflicts.
+//   Dv <= 160 (flash_f32_narrow_kernel): flash_bf16_kernel's structure, S,
+// P and O in registers, K/V tiles through a cp.async ring, blocks of 1-4
+// warps of 16 or 32 query rows each.
+//   Dv > 160 (flash_f32_wide_kernel, the VAE's 512): S formed once per
+// (64-row, 16-key) tile by 8 warps over quarters of the depth, P through
+// shared memory, each warp 64 output columns (see the kernel's note).
+//   Both take their launch plan from core/flash_attention.py
+// (flash_f32_plan): where the (row tile, batch, head) blocks are fewer
+// than the SMs, the keys are split into chunks over blockIdx.z, and the
+// last block of each row tile to finish folds the chunks' partial (max,
+// sum, O) into the output, inside the same launch.
+//
 // Not here yet: wgmma (asynchronous warpgroup products from shared
 // memory), TMA loads and warp specialisation, which would take the
 // fragment loads and the copies off the issue slots; the backward.
 //
-// fp32 (flash_f32_kernel) is the tests' path, not the main path's: the
-// tensor cores have no exact fp32 mode (TF32 only), so it uses exact fp32
-// FMAs on the CUDA cores with S, P and the output accumulator in shared
-// memory. It agrees with the plain PyTorch version to ~1e-6.
-//
 // Tensors are read through their (batch, head, row) strides, so the
 // (B, N, H, D) projections need no transposed copy. Plain C interface for
-// ctypes (no PyTorch headers): ea_flash_attention returns the launch's
-// cudaGetLastError(), 0 on success.
+// ctypes (no PyTorch headers): ea_flash_attention (bf16) and
+// ea_flash_attention_f32 return the launch's cudaGetLastError(), 0 on
+// success.
 
 #include "common.cuh"
 
@@ -75,7 +97,6 @@ namespace {
 
 using namespace ea;
 
-constexpr int kRows = 16;          // query rows per warp (fp32 path)
 constexpr int kWarps = 8;          // warps per block (bf16, Dv <= 160)
 constexpr int kWideWarps = 8;      // warps per block (bf16, Dv > 160)
 constexpr int kWideRows = 32;      // query rows per block (Dv > 160)
@@ -118,17 +139,18 @@ __device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
 // Start copying a rows x cols_pad tile, global (row stride src_ld) ->
 // shared (row stride dst_ld), by the whole block, zero past rows_valid /
 // cols_valid. vec: 16-byte cp.async, zero-filled by its src-size operand
-// (cols_valid, src_ld and src are multiples of 8 elements); else a
+// (cols_valid, src_ld and src are multiples of 16 bytes); else a
 // synchronous element copy.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int dst_ld,
-                                          const __nv_bfloat16* src,
+template <typename T>
+__device__ __forceinline__ void load_tile(T* dst, int dst_ld, const T* src,
                                           long long src_ld, int rows,
                                           int rows_valid, int cols_pad,
                                           int cols_valid, bool vec) {
+  constexpr int V = 16 / sizeof(T);
   if (vec) {
-    const int chunks = cols_pad / 8;
+    const int chunks = cols_pad / V;
     for (int idx = threadIdx.x; idx < rows * chunks; idx += blockDim.x) {
-      const int r = idx / chunks, c = (idx - r * chunks) * 8;
+      const int r = idx / chunks, c = (idx - r * chunks) * V;
       const bool valid = r < rows_valid && c < cols_valid;
       cp_async16_zfill(dst + r * dst_ld + c, valid ? src + r * src_ld + c : src,
                        valid);
@@ -137,13 +159,13 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int dst_ld,
     constexpr int kBatch = 8;
     const int total = rows * cols_pad;
     for (int base = threadIdx.x; base < total; base += kBatch * blockDim.x) {
-      __nv_bfloat16 val[kBatch];
+      T val[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int idx = base + u * blockDim.x;
         const int r = idx / cols_pad, c = idx - r * cols_pad;
         val[u] = idx < total && r < rows_valid && c < cols_valid
-                     ? __ldg(src + r * src_ld + c) : __float2bfloat16(0.0f);
+                     ? __ldg(src + r * src_ld + c) : from_f<T>(0.0f);
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
@@ -155,13 +177,20 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int dst_ld,
   }
 }
 
-__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int c, int width,
-                                           float x0, float x1, bool pairs) {
+// row[c], row[c + 1] = x0, x1 in T, both as one store where pairs (an even
+// width: c is even, so the pair is aligned)
+template <typename T>
+__device__ __forceinline__ void store_pair(T* row, int c, int width, float x0,
+                                           float x1, bool pairs) {
   if (pairs && c + 1 < width) {
-    *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(x0, x1);
+    if constexpr (sizeof(T) == 2) {
+      *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(x0, x1);
+    } else {
+      *reinterpret_cast<float2*>(row + c) = make_float2(x0, x1);
+    }
   } else {
-    if (c < width) row[c] = __float2bfloat16(x0);
-    if (c + 1 < width) row[c + 1] = __float2bfloat16(x1);
+    if (c < width) row[c] = from_f<T>(x0);
+    if (c + 1 < width) row[c + 1] = from_f<T>(x1);
   }
 }
 
@@ -683,171 +712,753 @@ cudaError_t dispatch_bf16(const Params& p, int batch, cudaStream_t s) {
 }
 
 // ---------------------------------------------------------------------------
-// fp32: exact FMAs on the CUDA cores, S/P/O in shared memory
+// fp32: 3xTF32 on the tensor cores, mma.sync m16n8k8 with fp32 sums
 // ---------------------------------------------------------------------------
 
-// Shared-memory carve-up, used by the host (sizing) and the kernel (offsets).
-// Odd row strides keep the lanes of a warp on distinct banks.
-struct F32Layout {
-  int ldq, ldv, lds, ldo;
-  size_t q, k, v, s, o, stats, total;
+constexpr int kF32MaxSplits = 16;  // key chunks of one row tile (the plan's cap)
+constexpr int kF32WideRows = 64;   // query rows per block (wide)
+constexpr int kF32WideKeys = 16;   // keys per tile (wide)
+constexpr int kF32WideWarps = 8;
+constexpr int kF32WideCols = 64;   // output columns per warp (wide)
+constexpr int kF32LdS = 24;        // row stride of S and P in shared memory (wide)
+
+struct F32Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  long long q_sb, q_sh, q_sn;
+  long long k_sb, k_sh, k_sn;
+  long long v_sb, v_sh, v_sn;
+  long long o_sb, o_sh, o_sn;
+  int heads, n, m, dqk, dv;
+  int dqk8, dv8;     // depths rounded up to 8 (one k8 step)
+  int ldq;           // row stride of the Q and K tiles, 8 (mod 16)
+  int vec;           // 1: rows may be read as 16-byte vectors
+  float scale;
+  int chunk, splits; // keys per chunk, chunks (blockIdx.z)
+  float* part;       // (splits, B*H, N, dv8): each chunk's unnormalised O
+  float* stats;      // (splits, B*H, N, 2): its running max (log2) and sum
+  int* counter;      // (B*H, row tiles): chunks of each row tile finished
 };
 
-__host__ __device__ inline F32Layout f32_layout(int bn, int bm, int dqk_pad,
-                                                int dv_pad) {
-  F32Layout L;
-  L.ldq = dqk_pad + 1;
-  L.ldv = dv_pad + 1;
-  L.lds = bm + 1;
-  L.ldo = dv_pad + 1;
+// Row stride of a Q or K tile of depth d8 (a multiple of 8): 8 (mod 16)
+// floats, so the 8-byte fragment loads of a half-warp (rows g = 0..3,
+// pairs t = 0..3) fall on 16 distinct bank pairs.
+__host__ __device__ inline int f32_ld(int d8) { return (d8 / 8) % 2 ? d8 : d8 + 8; }
+
+// One fp32 operand as tf32 hi (rounded to nearest) and the remainder lo =
+// x - hi (exact in fp32), passed whole: the tensor core reads its tf32 bits
+// and ignores the low 13 (truncation), as CUTLASS's fast fp32 products let
+// it. hi * hi + hi * lo + lo * hi misses only lo * lo and lo's truncation,
+// each under 2^-22 of the product. (Rounding lo with a second cvt.rna cost
+// 9-12 % of the kernel's time on an H100 and left its error against the
+// plain twin where it was.)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An m16n8k8 operand pair in 3xTF32: A's four registers, B's two, each as
+// hi and lo.
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// c += a b in 3xTF32, the small products first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a,
+                                           const FragB& b) {
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+
+// The fragment layout. m16n8k8 tf32 gives lane (g = lane / 4, t = lane % 4)
+// A's rows g and g + 8 at columns t and t + 4, B's columns (n) g at rows
+// (k) t and t + 4, and C's rows g and g + 8 at columns 2t and 2t + 1. A
+// product sums over k in any order, so every k8 step here pairs its
+// logical k = t with element 2t and k = t + 4 with element 2t + 1 of its 8
+// (depth or keys), on both operands alike. Then each row of A and of a K
+// tile gives its pair in one 8-byte load, and S's accumulator (row g, keys
+// 2t and 2t + 1) is already P's A fragment for O += P V: no shuffle.
+
+// A from a row-major tile; p = tile + g * ld + k0 + 2t
+__device__ __forceinline__ void load_a(FragA& a, const float* p, int ld) {
+  const float2 r0 = *reinterpret_cast<const float2*>(p);
+  const float2 r1 = *reinterpret_cast<const float2*>(p + 8 * ld);
+  split_tf32(r0.x, a.hi[0], a.lo[0]);
+  split_tf32(r1.x, a.hi[1], a.lo[1]);
+  split_tf32(r0.y, a.hi[2], a.lo[2]);
+  split_tf32(r1.y, a.hi[3], a.lo[3]);
+}
+
+// A from S's accumulator of one n8 tile (P, row g and g + 8, keys 2t, 2t + 1)
+__device__ __forceinline__ void split_p(FragA& a, const float (&s)[4]) {
+  split_tf32(s[0], a.hi[0], a.lo[0]);
+  split_tf32(s[2], a.hi[1], a.lo[1]);
+  split_tf32(s[1], a.hi[2], a.lo[2]);
+  split_tf32(s[3], a.hi[3], a.lo[3]);
+}
+
+// B = K^T from a row-major K tile; p = tile + (n0 + g) * ld + k0 + 2t
+__device__ __forceinline__ void load_b_rows(FragB& b, const float* p) {
+  const float2 r = *reinterpret_cast<const float2*>(p);
+  split_tf32(r.x, b.hi[0], b.lo[0]);
+  split_tf32(r.y, b.hi[1], b.lo[1]);
+}
+
+// B = V from a row-major V tile (keys are rows); p = tile + (k0 + 2t) * ld
+// + n0 + g. ld = 4 (mod 8) keeps the lanes on 32 distinct banks.
+__device__ __forceinline__ void load_b_cols(FragB& b, const float* p, int ld) {
+  split_tf32(p[0], b.hi[0], b.lo[0]);
+  split_tf32(p[ld], b.hi[1], b.lo[1]);
+}
+
+// Where the keys are split over blockIdx.z: each block has written its
+// chunk's unnormalised O and (max, sum) per row; the last block of the row
+// tile to finish returns true (the others false), after which every
+// chunk's partial is visible to it.
+__device__ bool last_chunk(const F32Params& p, int tile) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(p.counter + tile, 1) == p.splits - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last != 0;
+}
+
+// Fold every chunk's partial of rows row0 .. row0 + rows - 1 (rows <= 128)
+// into the output: O = sum_s 2^(m_s - m) O_s / sum_s 2^(m_s - m) l_s,
+// m = max_s m_s. First a thread per row turns the chunks' (max, sum) into
+// weights in shared memory (sw: (splits + 1) x rows floats, free by now),
+// then each thread takes 4 columns of a row at a time, kCombineUnroll
+// groups in flight, every chunk's partial read from L2 (__ldcg), never from
+// L1's copy: the loads of a group do not wait on each other.
+constexpr int kCombineUnroll = 4;
+
+__device__ void combine_chunks(const F32Params& p, int bh, int row0, int rows,
+                               float* o, float* sw) {
+  const long long plane = static_cast<long long>(gridDim.y) * p.n;
+  const long long first = static_cast<long long>(bh) * p.n + row0;
+  const int nrows = min(rows, p.n - row0);
+  for (int r = threadIdx.x; r < nrows; r += blockDim.x) {
+    float w[kF32MaxSplits], l[kF32MaxSplits];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int s = 0; s < kF32MaxSplits; ++s) {
+      if (s < p.splits) {
+        const float2 st = __ldcg(reinterpret_cast<const float2*>(
+            p.stats + (s * plane + first + r) * 2));
+        w[s] = st.x;
+        l[s] = st.y;
+        mx = fmaxf(mx, st.x);
+      }
+    }
+    float sum = 0.0f;
+#pragma unroll
+    for (int s = 0; s < kF32MaxSplits; ++s) {
+      if (s < p.splits) {
+        w[s] = fast_exp2(w[s] - mx);
+        sum += w[s] * l[s];
+      }
+    }
+    const float inv = 1.0f / sum;
+#pragma unroll
+    for (int s = 0; s < kF32MaxSplits; ++s)
+      if (s < p.splits) sw[s * rows + r] = w[s] * inv;
+  }
+  __syncthreads();
+  const int groups = (p.dv + 3) / 4;   // partial rows hold round8(dv) floats
+  const int items = nrows * groups;
+  const bool vec4 = p.dv % 4 == 0 && p.o_sn % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(o) % 16 == 0;
+  for (int base = threadIdx.x; base < items;
+       base += kCombineUnroll * blockDim.x) {
+    float4 x[kCombineUnroll];
+#pragma unroll
+    for (int u = 0; u < kCombineUnroll; ++u) x[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int s = 0; s < kF32MaxSplits; ++s) {
+      if (s >= p.splits) break;
+#pragma unroll
+      for (int u = 0; u < kCombineUnroll; ++u) {
+        const int i = base + u * blockDim.x;
+        if (i < items) {
+          const int r = i / groups, c = (i - r * groups) * 4;
+          const float wt = sw[s * rows + r];
+          const float4 y = __ldcg(reinterpret_cast<const float4*>(
+              p.part + (s * plane + first + r) * p.dv8 + c));
+          x[u].x += wt * y.x;
+          x[u].y += wt * y.y;
+          x[u].z += wt * y.z;
+          x[u].w += wt * y.w;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kCombineUnroll; ++u) {
+      const int i = base + u * blockDim.x;
+      if (i >= items) continue;
+      const int r = i / groups, c = (i - r * groups) * 4;
+      float* orow = o + (row0 + r) * p.o_sn + c;
+      if (vec4) {
+        *reinterpret_cast<float4*>(orow) = x[u];
+      } else {
+        const float e[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (c + k < p.dv) orow[k] = e[k];
+      }
+    }
+  }
+}
+
+// ---- narrow: Dv <= 160, S, P and O in registers --------------------------
+
+// Shared memory of flash_f32_narrow_kernel: Q (rows x ldq), then the
+// ring's stages (K tile, V tile each); used by the host (sizing) and the
+// kernel (offsets).
+template <int MT, int DVT, int KB, int STAGES>
+struct F32Narrow {
+  static constexpr int kLdv = DVT * 8 + 4;   // 4 (mod 8): see load_b_cols
+  __host__ __device__ static size_t q_bytes(int warps, int ldq) {
+    return align128(static_cast<size_t>(warps) * 16 * MT * ldq * 4);
+  }
+  __host__ __device__ static size_t k_bytes(int ldq) {
+    return align128(static_cast<size_t>(KB) * ldq * 4);
+  }
+  __host__ __device__ static size_t stage_bytes(int ldq) {
+    return k_bytes(ldq) + align128(static_cast<size_t>(KB) * kLdv * 4);
+  }
+  __host__ __device__ static size_t total(int warps, int ldq) {
+    return q_bytes(warps, ldq) + STAGES * stage_bytes(ldq);
+  }
+};
+
+// A block of blockDim.x / 32 warps (1, 2 or 4) owns warps * 16 * MT query
+// rows of one (batch, head) and the key chunk blockIdx.z; K and V tiles of
+// KB keys stream through a ring of STAGES cp.async stages. Per tile a warp
+// forms S = Q K^T for its MT m16 tiles (Q's fragments from shared memory,
+// each K fragment serving every m16 tile), runs the online softmax on the
+// registers and adds P V into its DVT n8 tiles of O.
+template <int MT, int DVT, int KB, int STAGES>
+__global__ void __launch_bounds__(128)
+flash_f32_narrow_kernel(F32Params p) {
+  using L = F32Narrow<MT, DVT, KB, STAGES>;
+  constexpr int kLdv = L::kLdv;
+  constexpr int NT = KB / 8;      // n8 tiles of S per m16 tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warps = blockDim.x / 32;
+  const int ldq = p.ldq;
+  float* sQ = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + L::q_bytes(warps, ldq);
+  const size_t stage_bytes = L::stage_bytes(ldq), k_bytes = L::k_bytes(ldq);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads, h = bh - (bh / p.heads) * p.heads;
+  const int rows = warps * 16 * MT;
+  const int row0 = blockIdx.x * rows;
+  const int k_begin = blockIdx.z * p.chunk;
+  const int k_end = min(p.m, k_begin + p.chunk);
+  const bool vec = p.vec != 0;
+  const float* q = p.q + b * p.q_sb + h * p.q_sh;
+  const float* k = p.k + b * p.k_sb + h * p.k_sh;
+  const float* v = p.v + b * p.v_sb + h * p.v_sh;
+  float* o = p.o + b * p.o_sb + h * p.o_sh;
+
+  const int ntiles = (k_end - k_begin + KB - 1) / KB;
+  auto issue = [&](int tile) {   // K and V of one key tile into its stage
+    unsigned char* st = ring + (tile % STAGES) * stage_bytes;
+    const int kv0 = k_begin + tile * KB;
+    load_tile(reinterpret_cast<float*>(st), ldq, k + kv0 * p.k_sn, p.k_sn, KB,
+              k_end - kv0, p.dqk8, p.dqk, vec);
+    load_tile(reinterpret_cast<float*>(st + k_bytes), kLdv, v + kv0 * p.v_sn,
+              p.v_sn, KB, k_end - kv0, DVT * 8, p.dv, vec);
+  };
+  load_tile(sQ, ldq, q + row0 * p.q_sn, p.q_sn, rows, p.n - row0, p.dqk8,
+            p.dqk, vec);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ntiles) issue(s);
+    cp_async_commit();
+  }
+
+  float acc[MT][DVT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < DVT; ++nt)
+      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.0f;
+  float m_run[MT][2], l_run[MT][2];   // rows g and g + 8, log2 domain
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m_run[mt][0] = m_run[mt][1] = -INFINITY;
+    l_run[mt][0] = l_run[mt][1] = 0.0f;   // this thread's partial sums
+  }
+  const float scale_log2 = p.scale * kLog2e;
+  const bool raw_max = scale_log2 > 0.0f;
+  const float factor = raw_max ? scale_log2 : 1.0f;
+  const float* qw = sQ + (warp * 16 * MT + g) * ldq + 2 * t;
+  const int ksteps = p.dqk8 / 8;
+  const bool active = row0 + warp * 16 * MT < p.n;
+
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<STAGES - 2>();  // tile j (and Q) landed for this thread
+    __syncthreads();              // ... for all; tile j - 1 no longer read
+    if (j + STAGES - 1 < ntiles) issue(j + STAGES - 1);
+    cp_async_commit();
+    const float* sK =
+        reinterpret_cast<const float*>(ring + (j % STAGES) * stage_bytes);
+    const float* sV = reinterpret_cast<const float*>(
+        ring + (j % STAGES) * stage_bytes + k_bytes);
+    if (!active) continue;   // no row of this warp lies below N
+
+    // S = Q K^T: MT x 16 rows x KB keys per warp
+    float s[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        s[mt][nt][0] = s[mt][nt][1] = s[mt][nt][2] = s[mt][nt][3] = 0.0f;
+    const float* kp = sK + g * ldq + 2 * t;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      FragA a[MT];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) load_a(a[mt], qw + mt * 16 * ldq + ks * 8, ldq);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        FragB kb;
+        load_b_rows(kb, kp + nt * 8 * ldq + ks * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_3xtf32(s[mt][nt], a[mt], kb);
+      }
+    }
+
+    // the online softmax on the registers, as flash_bf16_kernel's: the max
+    // on the raw logits and the scale folded into one FFMA before each
+    // exp2; only a chunk's last tile can be ragged
+    if (!raw_max) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][nt][e] *= scale_log2;
+    }
+    const int kv0 = k_begin + j * KB;
+    if (kv0 + KB > k_end) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (kv0 + nt * 8 + 2 * t + (e & 1) >= k_end) s[mt][nt][e] = -INFINITY;
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], s[mt][nt][e]);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_run[mt][r], mx[r] * factor);
+        alpha[r] = fast_exp2(m_run[mt][r] - m_new);
+        m_run[mt][r] = m_new;
+      }
+      float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pe = fast_exp2(fmaf(s[mt][nt][e], factor, -m_run[mt][e / 2]));
+          s[mt][nt][e] = pe;
+          sum[e / 2] += pe;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[mt][r] = l_run[mt][r] * alpha[r] + sum[r];
+#pragma unroll
+      for (int nt = 0; nt < DVT; ++nt) {
+        acc[mt][nt][0] *= alpha[0];
+        acc[mt][nt][1] *= alpha[0];
+        acc[mt][nt][2] *= alpha[1];
+        acc[mt][nt][3] *= alpha[1];
+      }
+    }
+
+    // O += P V, P's accumulator as the A operand (see the fragment layout)
+    const float* vp = sV + 2 * t * kLdv + g;
+#pragma unroll
+    for (int kc = 0; kc < NT; ++kc) {
+      FragA a[MT];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) split_p(a[mt], s[mt][kc]);
+#pragma unroll
+      for (int nt = 0; nt < DVT; ++nt) {
+        FragB vb;
+        load_b_cols(vb, vp + kc * 8 * kLdv + nt * 8, kLdv);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_3xtf32(acc[mt][nt], a[mt], vb);
+      }
+    }
+  }
+  cp_async_wait<0>();   // no copy may outlive the block
+
+  const bool pairs = (p.dv & 1) == 0;
+  const long long part_row0 =
+      (static_cast<long long>(blockIdx.z) * gridDim.y + bh) * p.n;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l = quad_sum(l_run[mt][r]);
+      const int gr = row0 + warp * 16 * MT + mt * 16 + g + r * 8;
+      if (gr >= p.n) continue;
+      if (p.splits == 1) {
+        const float inv = 1.0f / l;
+        float* orow = o + gr * p.o_sn;
+#pragma unroll
+        for (int nt = 0; nt < DVT; ++nt)
+          store_pair(orow, nt * 8 + 2 * t, p.dv, acc[mt][nt][2 * r] * inv,
+                         acc[mt][nt][2 * r + 1] * inv, pairs);
+      } else {
+        float* prow = p.part + (part_row0 + gr) * p.dv8;
+#pragma unroll
+        for (int nt = 0; nt < DVT; ++nt)
+          if (nt * 8 < p.dv8)
+            *reinterpret_cast<float2*>(prow + nt * 8 + 2 * t) =
+                make_float2(acc[mt][nt][2 * r], acc[mt][nt][2 * r + 1]);
+        if (t == 0)
+          *reinterpret_cast<float2*>(p.stats + (part_row0 + gr) * 2) =
+              make_float2(m_run[mt][r], l);
+      }
+    }
+  }
+  if (p.splits > 1 && last_chunk(p, bh * gridDim.x + blockIdx.x))
+    combine_chunks(p, bh, row0, rows, o, reinterpret_cast<float*>(ring));
+}
+
+// ---- wide: Dv > 160 (the VAE's 512), S formed once per tile ----------------
+
+struct F32WideLayout {
+  int ldv;
+  size_t q, k, v, s, stats, total;
+};
+
+__host__ __device__ inline F32WideLayout f32_wide_layout(int ldq, int dv8) {
+  F32WideLayout L;
+  L.ldv = dv8 + 4;   // 4 (mod 8): see load_b_cols
   size_t off = 0;
-  L.q = off; off = align128(off + static_cast<size_t>(bn) * L.ldq * 4);
-  L.k = off; off = align128(off + static_cast<size_t>(bm) * L.ldq * 4);
-  L.v = off; off = align128(off + static_cast<size_t>(bm) * L.ldv * 4);
-  L.s = off; off = align128(off + static_cast<size_t>(bn) * L.lds * 4);
-  L.o = off; off = align128(off + static_cast<size_t>(bn) * L.ldo * 4);
-  L.stats = off; off = align128(off + static_cast<size_t>(bn) * 3 * 4);
+  L.q = off; off = align128(off + static_cast<size_t>(kF32WideRows) * ldq * 4);
+  L.k = off; off = align128(off + static_cast<size_t>(kF32WideKeys) * ldq * 4);
+  L.v = off; off = align128(off + static_cast<size_t>(kF32WideKeys) * L.ldv * 4);
+  L.s = off; off = align128(off + static_cast<size_t>(4) * kF32WideRows * kF32LdS * 4);
+  L.stats = off; off = align128(off + static_cast<size_t>(kF32WideRows) * 3 * 4);
   L.total = off;
   return L;
 }
 
-__device__ inline float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__global__ void flash_f32_kernel(Params p, int bm) {
+// A block of 8 warps owns 64 query rows of one (batch, head) and the key
+// chunk blockIdx.z, 16 keys a tile. S of a tile is formed once: warp w
+// takes rows (w % 2) * 32 .. + 31 (two m16 tiles) over a quarter (w / 2)
+// of the depth, so each Q and K fragment serves two products, and the four
+// quarters are summed by the softmax pass (4 threads a row, 4 keys each),
+// which writes P over the first quarter. Every warp then adds P V into its
+// own 64 of the output columns (4 x 8 n8 tiles, 128 fp32 registers a
+// thread). Q (133 KB at D = 512), one K tile and one V tile (33 KB each)
+// fill the SM: V_j loads while S_j forms, K_{j+1} while the softmax and
+// P_j V_j run.
+__global__ void __launch_bounds__(kF32WideWarps * 32, 1)
+flash_f32_wide_kernel(F32Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int warps = blockDim.x / 32;
-  const int bn = warps * kRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const F32Layout L = f32_layout(bn, bm, p.dqk_pad, p.dv_pad);
+  const int ldq = p.ldq;
+  const F32WideLayout L = f32_wide_layout(ldq, p.dv8);
+  const int ldv = L.ldv;
   float* sQ = reinterpret_cast<float*>(smem + L.q);
   float* sK = reinterpret_cast<float*>(smem + L.k);
   float* sV = reinterpret_cast<float*>(smem + L.v);
   float* sS = reinterpret_cast<float*>(smem + L.s);
-  float* sO = reinterpret_cast<float*>(smem + L.o);
-  float* sM = reinterpret_cast<float*>(smem + L.stats);
-  float* sL = sM + bn;
-  float* sA = sL + bn;
+  float* sAlpha = reinterpret_cast<float*>(smem + L.stats);
+  float* sM = sAlpha + kF32WideRows;
+  float* sL = sM + kF32WideRows;
 
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const int bh = blockIdx.y;
   const int b = bh / p.heads, h = bh - (bh / p.heads) * p.heads;
-  const int row0 = blockIdx.x * bn;
-  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
-  float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const int row0 = blockIdx.x * kF32WideRows;
+  const int k_begin = blockIdx.z * p.chunk;
+  const int k_end = min(p.m, k_begin + p.chunk);
+  const bool vec = p.vec != 0;
+  const float* q = p.q + b * p.q_sb + h * p.q_sh;
+  const float* k = p.k + b * p.k_sb + h * p.k_sh;
+  const float* v = p.v + b * p.v_sb + h * p.v_sh;
+  float* o = p.o + b * p.o_sb + h * p.o_sh;
 
-  for (int idx = threadIdx.x; idx < bn * p.dqk_pad; idx += blockDim.x) {
-    const int r = idx / p.dqk_pad, d = idx - r * p.dqk_pad;
-    const int gr = row0 + r;
-    sQ[r * L.ldq + d] = (gr < p.n && d < p.dqk) ? q[gr * p.q_sn + d] : 0.0f;
-  }
-  for (int idx = threadIdx.x; idx < bn * p.dv_pad; idx += blockDim.x) {
-    const int r = idx / p.dv_pad, d = idx - r * p.dv_pad;
-    sO[r * L.ldo + d] = 0.0f;
-  }
-  for (int r = threadIdx.x; r < bn; r += blockDim.x) {
-    sM[r] = -INFINITY;
-    sL[r] = 0.0f;
-  }
+  load_tile(sQ, ldq, q + row0 * p.q_sn, p.q_sn, kF32WideRows, p.n - row0,
+            p.dqk8, p.dqk, vec);
+  load_tile(sK, ldq, k + k_begin * p.k_sn, p.k_sn, kF32WideKeys,
+            k_end - k_begin, p.dqk8, p.dqk, vec);
+  cp_async_commit();
 
-  const float* sQw = sQ + warp * kRows * L.ldq;
-  float* sSw = sS + warp * kRows * L.lds;
-  float* sOw = sO + warp * kRows * L.ldo;
+  // S: this warp's rows and depth quarter, and where its sums go
+  const int rh = warp & 1, dq = warp >> 1;
+  const int ksteps = p.dqk8 / 8;
+  const int ks0 = dq * ksteps / 4, ks1 = (dq + 1) * ksteps / 4;
+  const float* qa = sQ + (rh * 32 + g) * ldq + 2 * t;
+  const float* kb = sK + g * ldq + 2 * t;
+  float* sw = sS + (dq * kF32WideRows + rh * 32 + g) * kF32LdS + 2 * t;
+  // the softmax pass: row sr, keys sc .. sc + 3
+  const int sr = tid >> 2, sc = (tid & 3) * 4;
+  float m_run = -INFINITY, l_run = 0.0f;   // of row sr, log2 domain
+  const float scale_log2 = p.scale * kLog2e;
+  // P V: this warp's output columns
+  const int col0 = warp * kF32WideCols;
+  const float* pa = sS + g * kF32LdS + 2 * t;
+  const float* vb = sV + 2 * t * ldv + col0 + g;
+  float acc[4][kF32WideCols / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kF32WideCols / 8; ++nt)
+      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.0f;
 
-  for (int kv0 = 0; kv0 < p.m; kv0 += bm) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < bm * p.dqk_pad; idx += blockDim.x) {
-      const int r = idx / p.dqk_pad, d = idx - r * p.dqk_pad;
-      const int gr = kv0 + r;
-      sK[r * L.ldq + d] = (gr < p.m && d < p.dqk) ? k[gr * p.k_sn + d] : 0.0f;
+  const int ntiles = (k_end - k_begin + kF32WideKeys - 1) / kF32WideKeys;
+  for (int j = 0; j < ntiles; ++j) {
+    const int kv0 = k_begin + j * kF32WideKeys;
+    cp_async_wait<0>();   // K_j (and Q) landed for this thread
+    __syncthreads();      // ... for all; P_{j-1} V_{j-1} done: sV, sS free
+    load_tile(sV, ldv, v + kv0 * p.v_sn, p.v_sn, kF32WideKeys, k_end - kv0,
+              p.dv8, p.dv, vec);
+    cp_async_commit();
+
+    // two accumulators per tile: hi * hi apart from the small products
+    float big[2][2][4], small[2][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) big[mt][nt][e] = small[mt][nt][e] = 0.0f;
+#pragma unroll 4
+    for (int ks = ks0; ks < ks1; ++ks) {
+      FragA a[2];
+      FragB kf[2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) load_a(a[mt], qa + mt * 16 * ldq + ks * 8, ldq);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) load_b_rows(kf[nt], kb + nt * 8 * ldq + ks * 8);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          mma_tf32(small[mt][nt], a[mt].lo, kf[nt].hi[0], kf[nt].hi[1]);
+          mma_tf32(small[mt][nt], a[mt].hi, kf[nt].lo[0], kf[nt].lo[1]);
+          mma_tf32(big[mt][nt], a[mt].hi, kf[nt].hi[0], kf[nt].hi[1]);
+        }
     }
-    for (int idx = threadIdx.x; idx < bm * p.dv_pad; idx += blockDim.x) {
-      const int r = idx / p.dv_pad, d = idx - r * p.dv_pad;
-      const int gr = kv0 + r;
-      sV[r * L.ldv + d] = (gr < p.m && d < p.dv) ? v[gr * p.v_sn + d] : 0.0f;
-    }
-    __syncthreads();
-
-    for (int idx = lane; idx < kRows * bm; idx += 32) {
-      const int r = idx / bm, c = idx - r * bm;
-      const float* qr = sQw + r * L.ldq;
-      const float* kr = sK + c * L.ldq;
-      float dot = 0.0f;
-      for (int d = 0; d < p.dqk_pad; ++d) dot = fmaf(qr[d], kr[d], dot);
-      sSw[r * L.lds + c] = dot;
-    }
-    __syncwarp();
-
-    // online softmax, one row at a time across the warp
-    for (int r = 0; r < kRows; ++r) {
-      const int rr = warp * kRows + r;
-      float* srow = sSw + r * L.lds;
-      float mx = -INFINITY;
-      for (int c = lane; c < bm; c += 32) {
-        const float x = (kv0 + c < p.m) ? srow[c] * p.scale : -INFINITY;
-        srow[c] = x;
-        mx = fmaxf(mx, x);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float* d = sw + mt * 16 * kF32LdS + nt * 8;
+        *reinterpret_cast<float2*>(d) =
+            make_float2(big[mt][nt][0] + small[mt][nt][0],
+                        big[mt][nt][1] + small[mt][nt][1]);
+        *reinterpret_cast<float2*>(d + 8 * kF32LdS) =
+            make_float2(big[mt][nt][2] + small[mt][nt][2],
+                        big[mt][nt][3] + small[mt][nt][3]);
       }
-      mx = warp_max(mx);
-      const float m_prev = sM[rr];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.0f;
-      for (int c = lane; c < bm; c += 32) {
-        const float e = expf(srow[c] - m_new);
-        srow[c] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        sA[rr] = alpha;
-        sL[rr] = sL[rr] * alpha + sum;
-        sM[rr] = m_new;
-      }
+    __syncthreads();      // S's quarters visible; K_j no longer read
+    if (j + 1 < ntiles) {
+      load_tile(sK, ldq, k + (kv0 + kF32WideKeys) * p.k_sn, p.k_sn,
+                kF32WideKeys, k_end - kv0 - kF32WideKeys, p.dqk8, p.dqk, vec);
     }
-    __syncwarp();
+    cp_async_commit();
 
-    for (int idx = lane; idx < kRows * p.dv_pad; idx += 32) {
-      const int r = idx / p.dv_pad, c = idx - r * p.dv_pad;
-      const float* pr = sSw + r * L.lds;
-      float out = sOw[r * L.ldo + c] * sA[warp * kRows + r];
-      for (int j = 0; j < bm; ++j) out = fmaf(pr[j], sV[j * L.ldv + c], out);
-      sOw[r * L.ldo + c] = out;
+    // online softmax of row sr, keys sc .. sc + 3: the four quarters summed
+    float x[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int qd = 0; qd < 4; ++qd) {
+      const float4 s4 = *reinterpret_cast<const float4*>(
+          sS + (qd * kF32WideRows + sr) * kF32LdS + sc);
+      x[0] += s4.x; x[1] += s4.y; x[2] += s4.z; x[3] += s4.w;
     }
-    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[e] = kv0 + sc + e < k_end ? x[e] * scale_log2 : -INFINITY;
+    float mx = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = fast_exp2(m_run - m_new);
+    m_run = m_new;
+    float sum = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[e] = fast_exp2(x[e] - m_new);
+      sum += x[e];
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l_run = l_run * alpha + sum;
+    // P over the first quarter: only this thread read these four
+    *reinterpret_cast<float4*>(sS + sr * kF32LdS + sc) =
+        make_float4(x[0], x[1], x[2], x[3]);
+    if ((tid & 3) == 0) sAlpha[sr] = alpha;
+    cp_async_wait<1>();   // V_j landed (K_{j+1} may still be in flight)
+    __syncthreads();      // P, the rescale factors and V_j visible
+
+    if (col0 < p.dv8) {
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const float a0 = sAlpha[mt * 16 + g], a1 = sAlpha[mt * 16 + g + 8];
+#pragma unroll
+        for (int nt = 0; nt < kF32WideCols / 8; ++nt) {
+          acc[mt][nt][0] *= a0;
+          acc[mt][nt][1] *= a0;
+          acc[mt][nt][2] *= a1;
+          acc[mt][nt][3] *= a1;
+        }
+      }
+#pragma unroll
+      for (int kc = 0; kc < kF32WideKeys / 8; ++kc) {
+        FragA a[4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+          load_a(a[mt], pa + mt * 16 * kF32LdS + kc * 8, kF32LdS);
+#pragma unroll
+        for (int nt = 0; nt < kF32WideCols / 8; ++nt) {
+          if (col0 + nt * 8 < p.dv8) {
+            FragB vf;
+            load_b_cols(vf, vb + kc * 8 * ldv + nt * 8, ldv);
+#pragma unroll
+            for (int mt = 0; mt < 4; ++mt) mma_3xtf32(acc[mt][nt], a[mt], vf);
+          }
+        }
+      }
+    }
   }
+  cp_async_wait<0>();
+  if ((tid & 3) == 0) {
+    sM[sr] = m_run;
+    sL[sr] = l_run;
+  }
+  __syncthreads();
 
-  for (int idx = lane; idx < kRows * p.dv; idx += 32) {
-    const int r = idx / p.dv, d = idx - r * p.dv;
-    const int gr = row0 + warp * kRows + r;
-    if (gr < p.n) o[gr * p.o_sn + d] = sOw[r * L.ldo + d] / sL[warp * kRows + r];
+  const bool pairs = (p.dv & 1) == 0;
+  const long long part_row0 =
+      (static_cast<long long>(blockIdx.z) * gridDim.y + bh) * p.n;
+  if (col0 < p.dv8) {
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int lr = mt * 16 + g + r * 8, gr = row0 + lr;
+        if (gr >= p.n) continue;
+        if (p.splits == 1) {
+          const float inv = 1.0f / sL[lr];
+          float* orow = o + gr * p.o_sn;
+#pragma unroll
+          for (int nt = 0; nt < kF32WideCols / 8; ++nt)
+            store_pair(orow, col0 + nt * 8 + 2 * t, p.dv,
+                           acc[mt][nt][2 * r] * inv, acc[mt][nt][2 * r + 1] * inv,
+                           pairs);
+        } else {
+          float* prow = p.part + (part_row0 + gr) * p.dv8;
+#pragma unroll
+          for (int nt = 0; nt < kF32WideCols / 8; ++nt)
+            if (col0 + nt * 8 < p.dv8)
+              *reinterpret_cast<float2*>(prow + col0 + nt * 8 + 2 * t) =
+                  make_float2(acc[mt][nt][2 * r], acc[mt][nt][2 * r + 1]);
+        }
+      }
+    }
+  }
+  if (p.splits == 1) return;
+  if (tid < kF32WideRows && row0 + tid < p.n)
+    *reinterpret_cast<float2*>(p.stats + (part_row0 + row0 + tid) * 2) =
+        make_float2(sM[tid], sL[tid]);
+  if (last_chunk(p, bh * gridDim.x + blockIdx.x))
+    combine_chunks(p, bh, row0, kF32WideRows, o, sS);
+}
+
+// ---- the plan's checks and launch ------------------------------------------
+
+// What core/flash_attention.py::flash_f32_plan chose. The kernels run only
+// the configurations instantiated below; any other plan is refused with
+// cudaErrorInvalidValue, never run some other way.
+struct F32Plan {
+  int wide, mt, dvt, kb, stages, warps, smem;
+};
+
+template <int MT, int DVT, int KB, int STAGES>
+cudaError_t launch_f32_narrow(const F32Params& p, const F32Plan& plan,
+                              dim3 grid, cudaStream_t stream) {
+  using L = F32Narrow<MT, DVT, KB, STAGES>;
+  static SmemGrant grant;
+  if (plan.mt != MT || plan.kb != KB || plan.stages != STAGES ||
+      (plan.warps != 1 && plan.warps != 2 && plan.warps != 4) ||
+      static_cast<size_t>(plan.smem) != L::total(plan.warps, p.ldq)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t e = grant_smem(
+      grant, flash_f32_narrow_kernel<MT, DVT, KB, STAGES>, plan.smem, true);
+  if (e != cudaSuccess) return e;
+  flash_f32_narrow_kernel<MT, DVT, KB, STAGES>
+      <<<grid, plan.warps * 32, plan.smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// (MT, KB, STAGES) by the n8 tiles of O: two m16 tiles a warp up to 96
+// output columns, one above; 64-key tiles but 32 where two m16 tiles meet
+// 80-96 columns (the registers of S and O); three stages up to 48 columns
+cudaError_t dispatch_f32_narrow(const F32Params& p, const F32Plan& plan,
+                                dim3 grid, cudaStream_t s) {
+  switch (plan.dvt) {
+    case 4: return launch_f32_narrow<2, 4, 64, 3>(p, plan, grid, s);
+    case 5: return launch_f32_narrow<2, 5, 64, 3>(p, plan, grid, s);
+    case 6: return launch_f32_narrow<2, 6, 64, 3>(p, plan, grid, s);
+    case 8: return launch_f32_narrow<2, 8, 64, 2>(p, plan, grid, s);
+    case 10: return launch_f32_narrow<2, 10, 32, 2>(p, plan, grid, s);
+    case 12: return launch_f32_narrow<2, 12, 32, 2>(p, plan, grid, s);
+    case 16: return launch_f32_narrow<1, 16, 64, 2>(p, plan, grid, s);
+    case 20: return launch_f32_narrow<1, 20, 64, 2>(p, plan, grid, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t launch_f32(const Params& p, int batch, cudaStream_t stream) {
-  // (warps per block, keys per tile), widest first; the first that fits wins
-  static const int configs[][2] = {{4, 64}, {4, 32}, {2, 32}, {1, 32}, {1, 16}};
+cudaError_t launch_f32_wide(const F32Params& p, const F32Plan& plan, dim3 grid,
+                            cudaStream_t stream) {
   static SmemGrant grant;
-  int warps = 0, bm = 0;
-  size_t smem = 0;
-  for (const auto& c : configs) {
-    const F32Layout L = f32_layout(c[0] * kRows, c[1], p.dqk_pad, p.dv_pad);
-    if (L.total <= static_cast<size_t>(kMaxSmem)) {
-      warps = c[0];
-      bm = c[1];
-      smem = L.total;
-      break;
-    }
+  if (plan.mt != kF32WideRows / 16 || plan.kb != kF32WideKeys ||
+      plan.stages != 1 || plan.warps != kF32WideWarps ||
+      plan.dvt * 8 != p.dv8 ||
+      static_cast<size_t>(plan.smem) != f32_wide_layout(p.ldq, p.dv8).total) {
+    return cudaErrorInvalidValue;
   }
-  if (warps == 0) return cudaErrorInvalidValue;
-  cudaError_t e = grant_smem(grant, flash_f32_kernel, smem);
+  cudaError_t e = grant_smem(grant, flash_f32_wide_kernel, plan.smem, true);
   if (e != cudaSuccess) return e;
-  const int bn = warps * kRows;
-  const dim3 grid((p.n + bn - 1) / bn, batch * p.heads);
-  flash_f32_kernel<<<grid, warps * 32, smem, stream>>>(p, bm);
+  flash_f32_wide_kernel<<<grid, kF32WideWarps * 32, plan.smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -855,8 +1466,9 @@ cudaError_t launch_f32(const Params& p, int batch, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last axis
-// of every tensor must be contiguous. Returns a cudaError_t (0 = success).
+// bfloat16 (dtype 1; fp32 takes ea_flash_attention_f32 and its plan).
+// Strides are in elements; the last axis of every tensor must be
+// contiguous. Returns a cudaError_t (0 = success).
 int ea_flash_attention(const void* q, const void* k, const void* v, void* o,
                        long long q_sb, long long q_sh, long long q_sn,
                        long long k_sb, long long k_sh, long long k_sn,
@@ -865,7 +1477,7 @@ int ea_flash_attention(const void* q, const void* k, const void* v, void* o,
                        int batch, int heads, int n, int m, int dqk, int dv,
                        float scale, int dtype, void* stream) {
   if (batch <= 0 || heads <= 0 || n <= 0 || m <= 0 || dqk <= 0 || dv <= 0 ||
-      batch * heads > 65535) {
+      batch * heads > 65535 || dtype != 1) {
     return cudaErrorInvalidValue;
   }
   Params p;
@@ -887,10 +1499,68 @@ int ea_flash_attention(const void* q, const void* k, const void* v, void* o,
              reinterpret_cast<uintptr_t>(v) % 16 == 0;
   for (long long s : strides) vec = vec && s % 8 == 0;
   p.vec = vec ? 1 : 0;
+  return static_cast<int>(dispatch_bf16(p, batch, static_cast<cudaStream_t>(stream)));
+}
+
+// float32 through the plan of core/flash_attention.py::flash_f32_plan:
+// wide (0 narrow, 1 wide), m16 tiles a warp (4 = 64 rows a block when
+// wide), n8 tiles of O, keys a tile, ring stages, warps a block, keys a
+// chunk, chunks, dynamic shared memory. With chunks > 1, part (splits *
+// B*H * N * round8(dv) floats), stats (splits * B*H * N * 2 floats) and a
+// zeroed counter (B*H * row tiles ints) are the kernel's scratch. Returns a
+// cudaError_t: cudaErrorInvalidValue for a plan the kernels do not run.
+int ea_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
+                           long long q_sb, long long q_sh, long long q_sn,
+                           long long k_sb, long long k_sh, long long k_sn,
+                           long long v_sb, long long v_sh, long long v_sn,
+                           long long o_sb, long long o_sh, long long o_sn,
+                           int batch, int heads, int n, int m, int dqk, int dv,
+                           float scale, int wide, int mt, int dvt, int kb,
+                           int stages, int warps, int chunk, int splits,
+                           int smem, void* part, void* stats, void* counter,
+                           void* stream) {
+  if (batch <= 0 || heads <= 0 || n <= 0 || m <= 0 || dqk <= 0 || dv <= 0 ||
+      dqk > 512 || dv > 512 || batch * heads > 65535 || splits < 1 ||
+      splits > kF32MaxSplits || chunk < 1 ||
+      static_cast<long long>(chunk) * (splits - 1) >= m ||
+      static_cast<long long>(chunk) * splits < m || mt < 1 || warps < 1 ||
+      smem <= 0 || smem > kMaxSmem ||
+      (splits > 1 && (part == nullptr || stats == nullptr || counter == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  F32Params p;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_sn = q_sn;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_sn = k_sn;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_sn = v_sn;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_sn = o_sn;
+  p.heads = heads; p.n = n; p.m = m; p.dqk = dqk; p.dv = dv;
+  p.dqk8 = (dqk + 7) / 8 * 8;
+  p.dv8 = (dv + 7) / 8 * 8;
+  p.ldq = f32_ld(p.dqk8);
+  p.scale = scale;
+  p.chunk = chunk; p.splits = splits;
+  p.part = static_cast<float*>(part);
+  p.stats = static_cast<float*>(stats);
+  p.counter = static_cast<int*>(counter);
+  const long long strides[] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
+                               v_sb, v_sh, v_sn};
+  bool vec = dqk % 4 == 0 && dv % 4 == 0 &&
+             reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+             reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+             reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  for (long long s : strides) vec = vec && s % 4 == 0;
+  p.vec = vec ? 1 : 0;
+  const F32Plan plan{wide, mt, dvt, kb, stages, warps, smem};
+  const int rows = wide ? kF32WideRows : warps * 16 * mt;
+  const dim3 grid((n + rows - 1) / rows, batch * heads, splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return static_cast<int>(dispatch_bf16(p, batch, s));
-  if (dtype == 0) return static_cast<int>(launch_f32(p, batch, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (wide) return static_cast<int>(launch_f32_wide(p, plan, grid, s));
+  if (dvt * 8 < p.dv8) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch_f32_narrow(p, plan, grid, s));
 }
 
 const char* ea_cuda_error_string(int err) {

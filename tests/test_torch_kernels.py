@@ -197,3 +197,70 @@ def test_group_norm_plan_fits_every_traced_shape(itemsize):
 def test_group_norm_plan_paths(shape, itemsize, want):
     plan = tk.group_norm_plan(*shape, 32, itemsize)
     assert (plan.path, plan.k, plan.ctas, plan.share_bytes) == want
+
+
+# Every fp32 shape (B, H, N, M, Dqk, Dv) the port hands kernel B on the card:
+# tests/test_torch_kernels_cuda.py's cases (ATTN_CASES at batch 2 x 3 heads,
+# WIDE_CASES, the safety checker's, BLIP-2's, GroundingDINO's decoder, the
+# strided heads, the gradient checks and the full-width training cases) and
+# chip_smoke.py's fp32 calls (ATTN_SHAPES in fp32, TRAIN_GRAD_ATTN)
+F32_TEST_SHAPES = [
+    (2, 3, 128, 128, 40, 40), (2, 3, 256, 77, 80, 80),
+    (2, 3, 130, 77, 160, 160), (2, 3, 96, 64, 208, 80),
+    (2, 3, 64, 64, 512, 512), (2, 3, 70, 50, 36, 36),
+    (2, 3, 80, 77, 176, 176), (2, 3, 196, 196, 108, 80),
+    (2, 3, 196, 196, 112, 80), (2, 3, 256, 320, 40, 40),
+    (2, 3, 200, 1030, 80, 80), (2, 3, 100, 150, 208, 80),
+    (2, 3, 130, 1030, 64, 64),
+    (1, 1, 100, 130, 512, 512), (2, 1, 100, 130, 512, 512),
+    (1, 1, 64, 64, 512, 512), (2, 1, 64, 64, 512, 512),
+    (2, 16, 257, 257, 64, 64),
+    (1, 16, 257, 257, 88, 88), (10, 16, 257, 257, 88, 88),
+    (1, 12, 32, 32, 64, 64), (10, 12, 32, 257, 64, 64),
+    (1, 8, 900, 900, 32, 32), (2, 8, 300, 77, 40, 40),
+    (2, 2, 256, 256, 40, 40), (2, 2, 256, 77, 80, 80),
+    (2, 2, 64, 77, 160, 160), (2, 2, 64, 64, 512, 512),
+    (2, 2, 96, 64, 208, 80),
+    (1, 1, 4096, 4001, 512, 512),
+    (4, 8, 4096, 4096, 40, 40), (4, 8, 4096, 77, 40, 40),
+    (4, 8, 1024, 1024, 80, 80), (4, 8, 1024, 77, 80, 80),
+    (4, 8, 256, 256, 160, 160), (4, 8, 256, 77, 160, 160),
+    (4, 8, 64, 64, 160, 160), (4, 8, 64, 77, 160, 160),
+    (1, 16, 4096, 4096, 208, 80), (2, 8, 1024, 77, 80, 80),
+]
+# chip_smoke.py TRAIN_ATTN_SHAPES: a ControlNet training step at 512^2 with
+# batch 2 and its preprocessor's VAE encoder mid attention
+F32_TRAIN_SHAPES = [
+    (2, 8, 4096, 4096, 40, 40), (2, 8, 4096, 77, 40, 40),
+    (2, 8, 1024, 1024, 80, 80), (2, 8, 256, 256, 160, 160),
+    (2, 8, 64, 64, 160, 160), (2, 1, 4096, 4096, 512, 512),
+]
+
+
+@pytest.mark.parametrize("shape", F32_TEST_SHAPES + F32_TRAIN_SHAPES)
+def test_flash_f32_plan_fits_every_fp32_shape(shape):
+    """Kernel B's fp32 plan at every fp32 shape the port launches: each
+    block fits 227 KB, the row tiles cover N, the key chunks cover M
+    exactly (none empty), narrow exactly where Dv <= 160 and Dqk <= 256,
+    and at the training shapes the grid has at least one block per SM."""
+    b, h, n, m, dqk, dv = shape
+    plan = tfa.flash_f32_plan(*shape)
+    assert 0 < plan.smem <= SMEM_PER_CTA
+    assert plan.path == ("narrow" if dv <= 160 and dqk <= 256 else "wide")
+    if plan.path == "narrow":
+        assert plan.warps in (1, 2, 4) and plan.rows == plan.warps * 16 * plan.mt
+    else:
+        assert plan.warps == 8 and plan.rows == 16 * plan.mt == 64
+    assert plan.grid[0] == -(-n // plan.rows) and plan.grid[1] == b * h
+    assert plan.grid[2] == plan.splits and 1 <= plan.splits <= 16
+    assert (plan.splits - 1) * plan.chunk < m <= plan.splits * plan.chunk
+    assert 8 * plan.dvt >= dv
+    if shape in F32_TRAIN_SHAPES:
+        assert plan.blocks >= 132
+
+
+def test_flash_f32_plan_refuses_depths_past_512():
+    with pytest.raises(ValueError):
+        tfa.flash_f32_plan(1, 1, 64, 64, 520, 64)
+    with pytest.raises(ValueError):
+        tfa.flash_f32_plan(1, 1, 64, 64, 64, 513)

@@ -9,10 +9,11 @@ package, so it runs on a GPU host that has only PyTorch:
 (``--noconftest``: tests/conftest.py configures jax.) ``chip_smoke.py``
 makes the same comparison at the main path's shapes.
 
-Tolerances: fp32 1e-4 absolute (exact fp32 products, sums in other
-orders); bf16 attention 2^-6 of the twin's largest output, i.e. two bf16
-ulps of it (both sides keep fp32 sums and round the output once; P is
-rounded to bf16 unnormalised in the kernel and normalised in the twin);
+Tolerances: fp32 1e-4 absolute (fp32 products, kernel B's in 3xTF32
+within ~2^-21 of them, sums in other orders); bf16 attention 2^-6 of the
+twin's largest output, i.e. two bf16 ulps of it (both sides keep fp32
+sums and round the output once; P is rounded to bf16 unnormalised in the
+kernel and normalised in the twin);
 bf16 GroupNorm 6.25e-2, one bf16 ulp at outputs below 16 (fp16 1e-2, one
 fp16 ulp there). SAM's decoder
 kernels (two-way transformer, upscale + hypernetwork) at SAM's published
@@ -129,6 +130,34 @@ def test_flash_attention_safety_checker_shape_matches_plain(cuda_device,
     64 over the 257 tokens (256 patches + CLS), a ragged last tile."""
     q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
                for a in _qkv(6, 2, 16, 257, 257, 64, 64))
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    want = tfa.flash_attention_reference(q, k, v)
+    err, bound = _attention_err_and_bound(got, want)
+    assert err <= bound
+
+
+# fp32 at full training width (b, h, n, m, dqk, dv), as the trainers run
+# it (TF32 off): the UNet's 64x64 self- and cross-attention at batch 2, the
+# VAE encoder's 512-deep mid attention at batch 2 (its keys in chunks), and
+# at batch 1 with M a multiple of neither the key chunk nor the tile
+F32_TRAIN_CASES = [(2, 8, 4096, 4096, 40, 40), (2, 8, 4096, 77, 40, 40),
+                   (2, 1, 4096, 4096, 512, 512), (1, 1, 4096, 4001, 512, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,m,dqk,dv", F32_TRAIN_CASES)
+def test_flash_attention_fp32_training_shapes_match_plain(cuda_device, b, h,
+                                                          n, m, dqk, dv):
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _qkv(9, b, h, n, m, dqk, dv))
+    plan = tfa.flash_f32_plan(b, h, n, m, dqk, dv)
+    if dv == 512:
+        assert plan.splits > 1
+    if m == 4001:
+        assert m % plan.chunk and m % plan.kb
     before = tfa.flash_attention.launches
     got = tfa.flash_attention(q, k, v)
     torch.cuda.synchronize()
