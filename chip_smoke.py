@@ -166,7 +166,8 @@ non-zero, and nothing is caught:
      at UNet shapes in fp32 and bf16 (forward within the kernel's bound of
      the twin, gradients the twin's own, the backward being a recompute
      through it); B in fp32 at the training step's shapes (batch 2, no
-     CFG), each with its launch plan, against its planted faults, beside
+     CFG; 64x64 self also at a tensor-parallel rank's 4 and 2 of its 8
+     heads), each with its launch plan, against its planted faults, beside
      its bound at 165 TFLOP/s (3xTF32) and SDPA in fp32; one step
      of the tiny ControlNet in fp32 on the card against the CPU, with the
      resnets composed and fused (every ControlNet tensor's gradient nonzero
@@ -194,6 +195,15 @@ non-zero, and nothing is caught:
      frozen UNet bit-unchanged after LoRA; a one-rank nccl process group
      around one DreamBooth step and one ControlNet ``train()`` step, each
      equal to the step without the group to the bit (cuDNN deterministic);
+     in that group the (data, model) mesh at (1, 1), the only mesh one
+     card holds: ``train(mesh=make_mesh(1, 1))`` (SD1.5 fp32, batch 2 at
+     512^2, remat "dots", EMA, 3 steps, a checkpoint) beside the plain
+     ``train()``, its first-step gradients equal to the bit, B and A
+     launches a step as predicted, iteration seconds and peak memory of
+     both, the checkpoint loaded into a plain state and resumed by the
+     plain ``train()``, and the per-rank state bytes of
+     ``shard_params_tp(..., also_fsdp=True)`` at n_data 1-8 and n_model 1
+     and 2, computed from the layout;
      the command line in-process: ``edit`` with no mask from a spec of
      full-width files the phase writes (the SD1.5 bundle in fp16, two
      ControlNets, SAM ViT-H's fp32 ``.pth``), its B launches as predicted
@@ -207,6 +217,7 @@ checks that no module of either was loaded.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import shutil
@@ -3519,6 +3530,9 @@ def phase_grounding(editor) -> dict:
 # preprocessor's VAE encoder mid attention
 TRAIN_ATTN_SHAPES = [
     ("train unet 64x64 self", 2, 8, 4096, 4096, 40, 40),
+    # a rank's heads under tensor parallelism over 2 and 4 model ranks
+    ("train unet 64x64 self, 4 of 8 heads (TP 2)", 2, 4, 4096, 4096, 40, 40),
+    ("train unet 64x64 self, 2 of 8 heads (TP 4)", 2, 2, 4096, 4096, 40, 40),
     ("train unet 64x64 cross", 2, 8, 4096, 77, 40, 40),
     ("train unet 32x32 self", 2, 8, 1024, 1024, 80, 80),
     ("train unet 16x16 self", 2, 8, 256, 256, 160, 160),
@@ -4038,6 +4052,14 @@ DB_LR = 5e-6
 # the command line's edit on the files the phase writes: 1 sample, fewer
 # steps than the UI's 30 (the edit's time is phases 4 and 5's)
 CLI_EDIT_STEPS = 10
+# the (1, 1) mesh's ControlNet run: its steps (two after the first, whose
+# iteration holds the run's start), the bound of its first-step
+# gradients against the plain step's where they are not equal to the bit
+# (2e-5 of each tensor's largest, the CPU tests' bound for meshes that do
+# split), and the (n_data, n_model) meshes of the per-rank state table
+MESH_STEPS = 3
+MESH_GRAD_REL = 2e-5
+MESH_STATE_SHAPES = [(nd, nm) for nm in (1, 2) for nd in (1, 2, 4, 8)]
 
 
 def db_predicted_launches(bundle) -> dict:
@@ -4327,6 +4349,169 @@ def controlnet_with_a_group(bundle, d: str, group) -> None:
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def first_step_grads(store: list):
+    """The gradients of the first step of each ``train()`` run (the
+    ControlNet's, in its parameters' order), copied to the host after the
+    step."""
+    from editanything_tpu_torch.train import train_controlnet as TC
+    made = TC.make_train_step
+
+    def make_step(*args, **kwargs):
+        step = made(*args, **kwargs)
+        first = []
+
+        def recorded(state, *a, **kw):
+            out = step(state, *a, **kw)
+            if not first:
+                first.append([p.grad.detach().cpu()
+                              for p in state.controlnet.parameters()])
+                store.append(first[0])
+            return out
+        return recorded
+    TC.make_train_step = make_step
+    try:
+        yield
+    finally:
+        TC.make_train_step = made
+
+
+def mesh_state_bytes(controlnet) -> dict:
+    """Per-rank bytes of the trainable state (fp32 parameters, gradients,
+    Adam's two moments, the EMA) under ``shard_params_tp(...,
+    also_fsdp=True)`` at each (n_data, n_model) of MESH_STATE_SHAPES,
+    computed from the layout (each split tensor a 1/n share), not
+    measured."""
+    from editanything_tpu_torch.parallel.sharding import layout_plan
+    out = {}
+    for n_data, n_model in MESH_STATE_SHAPES:
+        plan, _ = layout_plan(controlnet, n_data, n_model, fsdp=True)
+        sizes = {"data": n_data, "model": n_model}
+        elems = sum(p.numel() / (sizes[plan[k].axis] if plan[k].axis else 1)
+                    for k, p in controlnet.named_parameters())
+        out[(n_data, n_model)] = {
+            "params": 4 * elems, "grads": 4 * elems, "adam": 8 * elems,
+            "ema": 4 * elems, "total": 20 * elems}
+    return out
+
+
+def controlnet_on_a_mesh(bundle, d: str) -> dict:
+    """``train(mesh=make_mesh(1, 1))`` in the one-rank nccl group, SD1.5 at
+    the published widths in fp32: batch 2 at 512^2, remat "dots", EMA,
+    MESH_STEPS steps and a checkpoint, beside the plain ``train()`` from
+    the same start and data, cuDNN deterministic. At (1, 1) no tensor is
+    split and no collective runs, so the first step's gradients must equal
+    the plain step's to the bit; each step's B and A launches are the
+    plain step's prediction; iteration seconds and peak memory of both.
+    The checkpoint loads into a plain train state (every tensor equal to
+    the mesh's gathered one) and the plain ``train()`` resumes from it for
+    one more step. Returns a mesh step's launches."""
+    from editanything_tpu_torch.parallel import sharding as S
+    from editanything_tpu_torch.train import controlnet_train as T
+    from editanything_tpu_torch.train.checkpointing import CheckpointManager
+    from editanything_tpu_torch.train.train_controlnet import train
+    data = os.path.join(d, "sa1b")
+    cn = bundle.controlnets["sam"][1]
+    predicted = predicted_train_launches(bundle.unet, cn)
+    kw = dict(data_path=data, txt_path=os.path.join(data, "data.txt"),
+              bundle=bundle, batch_size=2, resolution=512, remat="dots",
+              use_ema=True, image_every=100, ckpt_every=100, log_every=1)
+    mesh = S.make_mesh(1, 1)
+    runs = {}
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        for tag, extra in (("plain", {}), ("mesh", {"mesh": mesh})):
+            records, grads = [], []
+            # what earlier runs left in reference cycles (DDP's) is freed
+            # first, so that each peak is its own run's
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            with timed_train_steps(records), first_step_grads(grads):
+                state = train(out_dir=os.path.join(d, f"cn_{tag}"),
+                              max_steps=MESH_STEPS, **extra, **kw)
+            runs[tag] = {"records": records, "grads": grads[0],
+                         "peak": torch.cuda.max_memory_allocated(),
+                         "start": start}
+            check(state.step == MESH_STEPS, f"{tag}: step {state.step}")
+            if tag == "mesh":
+                runs[tag]["state"] = state
+            del state
+    plain, on_mesh = runs["plain"], runs["mesh"]
+    layout = S.layout_of(on_mesh["state"].controlnet)
+    check(layout is not None and not any(
+        layout.split(p) for p in layout.placements.values()),
+        "a (1, 1) mesh split a tensor")
+    errs = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+            for a, b in zip(on_mesh["grads"], plain["grads"])]
+    equal = all(torch.equal(a, b) for a, b in
+                zip(on_mesh["grads"], plain["grads"]))
+    check(equal or max(errs) <= MESH_GRAD_REL,
+          f"mesh first-step gradients {max(errs):.3e} of the largest")
+    for r in on_mesh["records"] + plain["records"]:
+        for name, want in predicted.items():
+            check(r["counts"][name] == want,
+                  f"mesh/plain step: {name} {r['counts'][name]}, "
+                  f"predicted {want}")
+    losses = [r["loss"] for r in on_mesh["records"]]
+    check(all(np.isfinite(losses)), f"mesh losses {losses}")
+    del plain["grads"], on_mesh["grads"]
+    shutil.rmtree(os.path.join(d, "cn_plain"), ignore_errors=True)
+
+    # the (1, 1) checkpoint into a plain state, then the plain train()
+    mesh_state = on_mesh.pop("state")
+    want = {"params": S.full_state_dict(mesh_state.controlnet),
+            "ema": S.full_state_dict(mesh_state.ema)}
+    loaded = T.init_train_state(cn, T.make_optimizer(1e-5), use_ema=True)
+    CheckpointManager(os.path.join(d, "cn_mesh", "ckpt")).restore(loaded)
+    check(loaded.step == MESH_STEPS, f"restored step {loaded.step}")
+    for part, module in (("params", loaded.controlnet),
+                         ("ema", loaded.ema)):
+        got = module.state_dict()
+        check(all(torch.equal(got[k], v) for k, v in want[part].items()),
+              f"the mesh checkpoint's {part} differ from the mesh state's")
+    del mesh_state, loaded, want
+    torch.cuda.empty_cache()
+    resumed, seconds = _synced(train, out_dir=os.path.join(d, "cn_mesh"),
+                               max_steps=MESH_STEPS + 1,
+                               **dict(kw, ckpt_every=1000))
+    check(resumed.step == MESH_STEPS + 1, f"resume: step {resumed.step}")
+    del resumed
+    shutil.rmtree(os.path.join(d, "cn_mesh"), ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    def times(tag):
+        return ", ".join(f"{r['iteration_s']:.3f}" for r in runs[tag]["records"])
+    print(f"[mesh] train(mesh=make_mesh(1, 1)) in a one-rank nccl group, "
+          f"SD1.5 fp32, batch 2 at 512^2, remat dots, EMA, {MESH_STEPS} "
+          f"steps (cuDNN deterministic): first-step gradients "
+          f"{'equal to the bit' if equal else f'within {max(errs):.3e}'} of "
+          f"the plain train()'s (no tensor split, no collective at (1, 1)); "
+          f"seconds per iteration mesh {times('mesh')} against plain "
+          f"{times('plain')}; peak memory mesh "
+          f"{on_mesh['peak'] / 2**30:.2f} GiB against plain "
+          f"{plain['peak'] / 2**30:.2f} GiB (allocated at their starts "
+          f"{on_mesh['start'] / 2**30:.2f} and "
+          f"{plain['start'] / 2**30:.2f} GiB); launches per step mesh "
+          f"{[r['counts'] for r in on_mesh['records']]}, predicted B "
+          f"{predicted['flash_attention']} and A "
+          f"{predicted['group_norm_silu']}; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; its checkpoint loaded "
+          f"into a plain state equal to the bit and resumed by the plain "
+          f"train() to step {MESH_STEPS + 1} in {seconds:.2f} s")
+    table = mesh_state_bytes(cn)
+    print("[mesh] per-rank trainable state of the SD1.5 ControlNet (fp32 "
+          "parameters, gradients, Adam's two moments, EMA; GiB) under "
+          "shard_params_tp(..., also_fsdp=True), computed from the layout, "
+          "not measured: " + "; ".join(
+              f"(n_data {nd}, n_model {nm}) {v['params'] / 2**30:.3f} + "
+              f"{v['grads'] / 2**30:.3f} + {v['adam'] / 2**30:.3f} + "
+              f"{v['ema'] / 2**30:.3f} = {v['total'] / 2**30:.3f}"
+              for (nd, nm), v in table.items()))
+    return dict(on_mesh["records"][-1]["counts"])
+
+
 def cli_edit(bundle, d: str) -> dict:
     """The command line's ``edit`` with no mask (the AMG runs kernels D and
     C) on full-width files: the bundle in fp16 and SAM ViT-H's fp32 ``.pth``,
@@ -4496,6 +4681,8 @@ def phase_dreambooth_and_apps() -> dict:
                 generator=torch.Generator("cuda").manual_seed(5),
                 controlnet_names=("sam", "inpaint"))
             controlnet_with_a_group(cn_bundle, d, group)
+            launches["controlnet train step on a (1, 1) mesh"] = \
+                controlnet_on_a_mesh(cn_bundle, d)
         finally:
             dist.destroy_process_group()
 

@@ -32,6 +32,15 @@ def window_ids(tokenizer, prompt: str, negative_prompt: str = "",
     return grid(p), grid(n)
 
 
+def encode_windows(text_model, ids, *, layer_skip: Optional[int] = None
+                   ) -> torch.Tensor:
+    """(W, 77) window ids -> the (1, W*77, D) context of one encoder call
+    over the windows."""
+    hidden = text_model(ids, layer_skip=layer_skip)
+    w, n, d = hidden.shape
+    return hidden.reshape(1, w * n, d)
+
+
 def get_pipeline_embeds(text_model, tokenizer, prompt: str,
                         negative_prompt: str = "", *,
                         layer_skip: Optional[int] = None,

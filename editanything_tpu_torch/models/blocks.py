@@ -77,6 +77,9 @@ class Attention(nn.Module):
         return self.to_k(context), self.to_v(context)
 
     def forward(self, x, context=None, *, kv=None):
+        """The head width comes from `x`'s whole width and the head count
+        from the projections': under tensor parallelism
+        (parallel/sharding.py) they hold this rank's heads alone."""
         b, n, c = x.shape
         q = self.to_q(x)
         if kv is not None:
@@ -84,16 +87,19 @@ class Attention(nn.Module):
         else:
             k, v = self.project_kv(x if context is None else context)
         d = c // self.heads
-        q = q.view(b, n, self.heads, d).transpose(1, 2)
-        k = k.view(b, -1, self.heads, d).transpose(1, 2)
-        v = v.view(b, -1, self.heads, d).transpose(1, 2)
+        q = q.view(b, n, -1, d).transpose(1, 2)
+        k = k.view(b, k.shape[1], -1, d).transpose(1, 2)
+        v = v.view(b, v.shape[1], -1, d).transpose(1, 2)
         out = L.attention(q, k, v)
-        out = out.transpose(1, 2).reshape(b, n, c)
+        out = out.transpose(1, 2).reshape(b, n, -1)
         return self.to_out[0](out)
 
 
 class GEGLU(nn.Module):
-    """Gated GELU of the SD transformer FFN: project to 2x, gate with GELU."""
+    """Gated GELU of the SD transformer FFN: project to 2x, gate with GELU.
+    Under tensor parallelism ``proj`` holds this rank's slice of each half
+    (parallel/sharding.py's ``geglu`` placement), so ``chunk(2)`` still
+    pairs them."""
 
     def __init__(self, dim: int, inner: int):
         super().__init__()

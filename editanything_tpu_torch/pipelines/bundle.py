@@ -111,6 +111,27 @@ class ModelBundle:
         return self
 
 
+def replicate_bundle(bundle: ModelBundle, group) -> ModelBundle:
+    """Every model's weights broadcast from `group`'s first rank to all of
+    its ranks, in place (nothing for one rank). Returns the bundle."""
+    from editanything_tpu_torch.parallel.sharding import replicate
+    for m in [bundle.unet, bundle.vae, bundle.text] + [
+            net for _, net in bundle.controlnets.values()] + (
+            [] if bundle.safety is None else [bundle.safety.model]):
+        replicate(m, group)
+    return bundle
+
+
+def place_on_mesh(bundle: ModelBundle, mesh) -> ModelBundle:
+    """The bundle replicated over every rank of `mesh` (JAX's
+    ``place_on_mesh``): inference splits the samples over "data" and holds
+    the weights whole on every rank. Returns the bundle."""
+    import torch.distributed as dist
+    if mesh.size() != dist.get_world_size():
+        raise ValueError("the mesh must span the default group")
+    return replicate_bundle(bundle, dist.group.WORLD)
+
+
 def _empty(cls, cfg, device, dtype) -> nn.Module:
     with torch.device("meta"):
         module = cls(cfg)

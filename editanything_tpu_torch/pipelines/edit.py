@@ -50,8 +50,9 @@ class EditPipeline(GenerationPipeline):
 
     def __init__(self, bundle: ModelBundle,
                  controls: Sequence[str] = ("sam", "inpaint"),
-                 inpaint_mode: str = "blend", group=None):
-        super().__init__(bundle, controlnet=controls[0], group=group)
+                 inpaint_mode: str = "blend", group=None, mesh=None):
+        super().__init__(bundle, controlnet=controls[0], group=group,
+                         mesh=mesh)
         self.controls = tuple(controls)
         self.inpaint_mode = inpaint_mode
 

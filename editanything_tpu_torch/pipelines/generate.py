@@ -15,12 +15,13 @@ checker, where one is loaded, as every pipeline's of the JAX package do
 (edit.py:276, :348, generate.py:227, img2img.py:104); its flags are
 ``last_nsfw``.
 
-Data parallelism (``group=``, a ``torch.distributed`` group; JAX's
-``mesh=``): every rank builds the request's inputs and draws its noise for
-the whole batch, denoises and decodes its contiguous slice of the samples
-(``shard_denoise_inputs``), and the uint8 images are gathered back in
-order, so N ranks return what one process returns. The batch
-(`num_samples`) must divide by the ranks.
+Data parallelism (``group=``, a ``torch.distributed`` group, or
+``mesh=``, a (data, model) mesh whose "data" group serves as the group,
+as JAX's ``mesh_jit`` shards over "data" alone): every rank builds the
+request's inputs and draws its noise for the whole batch, denoises and
+decodes its contiguous slice of the samples (``shard_denoise_inputs``),
+and the uint8 images are gathered back in order, so N ranks return what
+one process returns. The batch (`num_samples`) must divide by the ranks.
 """
 
 from __future__ import annotations
@@ -33,10 +34,12 @@ import torch
 from editanything_tpu_torch.engine import prompts as P
 from editanything_tpu_torch.engine.denoise import DenoiseConfig, build_denoiser
 from editanything_tpu_torch.models.vae import _scale_factor
-from editanything_tpu_torch.parallel.sharding import (gather_batch,
-                                                      rank_and_size,
-                                                      replicate, shard_batch)
-from editanything_tpu_torch.pipelines.bundle import ModelBundle
+from editanything_tpu_torch.parallel.sharding import (data_group,
+                                                      gather_batch,
+                                                      shard_batch)
+from editanything_tpu_torch.pipelines.bundle import (ModelBundle,
+                                                     place_on_mesh,
+                                                     replicate_bundle)
 from editanything_tpu_torch.samplers.schedule import make_timesteps
 from editanything_tpu_torch.utils.image import HWC3, resize_bilinear, resize_image
 
@@ -82,15 +85,18 @@ class GenerationPipeline:
     vae_tile_overlap = 32
 
     def __init__(self, bundle: ModelBundle, controlnet: str = "sam",
-                 group=None):
+                 group=None, mesh=None):
         self.bundle = bundle
         self.controlnet = controlnet
+        if mesh is not None:
+            if group is not None:
+                raise ValueError("a pipeline takes group= or mesh=, not both")
+            place_on_mesh(bundle, mesh)
+            group = data_group(mesh)
+        else:
+            replicate_bundle(bundle, group)
         # data parallelism over the samples; None: this process alone
         self.group = group
-        if rank_and_size(group)[1] > 1:
-            for m in [bundle.unet, bundle.vae, bundle.text] + [
-                    net for _, net in bundle.controlnets.values()]:
-                replicate(m, group)
         # non-finite values in the last decoded batch, before the uint8 cast
         self.last_nonfinite = None
         # per-image NSFW flags of the last call; None: no checker is loaded

@@ -28,8 +28,8 @@ class CheckpointManager:
     """Save and restore train states (anything with ``state_dict`` and
     ``load_state_dict``, or a plain dict of tensors) by step, keeping the
     newest ``max_to_keep``. Under data parallelism every rank restores and
-    only the main one (`is_main`, default rank 0 of an initialised
-    ``torch.distributed``) writes."""
+    takes the state to save, and only the main one (`is_main`, default
+    rank 0 of an initialised ``torch.distributed``) writes."""
 
     def __init__(self, directory: str, *, max_to_keep: int = 3,
                  save_interval_steps: int = 1000,
@@ -60,10 +60,11 @@ class CheckpointManager:
     def save(self, step: int, state) -> None:
         """Write the step's file (through a temporary name, so a cut write
         leaves no partial checkpoint), then drop the oldest beyond
-        ``max_to_keep``; nothing on a rank that is not the main one."""
+        ``max_to_keep``. Every rank takes the state's ``state_dict`` (on a
+        mesh it gathers: a collective); only the main one writes."""
+        sd = state.state_dict() if hasattr(state, "state_dict") else state
         if not self.is_main:
             return
-        sd = state.state_dict() if hasattr(state, "state_dict") else state
         tmp = self._path(step) + ".tmp"
         torch.save(sd, tmp)
         os.replace(tmp, self._path(step))

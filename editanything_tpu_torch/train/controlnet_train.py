@@ -21,6 +21,15 @@ follows JAX's ``offload_dot_with_no_batch_dims``: the outputs of the
 matmuls without a batch axis (``mm``, ``addmm``: the linear layers) go to
 host memory, pinned, and come back in the recompute, which reruns every
 other op.
+
+On a (data, model) mesh (parallel/sharding.py's ``shard_params_tp``) the
+ControlNet and its EMA hold this rank's slices: the step averages the
+gradients over the data ranks after the backward, counts each element of
+the grad norm once, and "dots" also keeps the outputs of the row-parallel
+layers' sums over the model ranks, so the recompute does not sum again;
+every rank issues the same collectives in the same order in every remat
+mode. The state's ``state_dict`` is the whole module's (gathered), and
+its ``load_state_dict`` cuts each rank's slices back out.
 """
 
 from __future__ import annotations
@@ -35,32 +44,42 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from editanything_tpu_torch.parallel import sharding as S
 from editanything_tpu_torch.parallel.sharding import unwrap
 from editanything_tpu_torch.samplers.schedule import NoiseSchedule
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The trainable ControlNet (in a DDP wrap under data parallelism),
-    its optimizer, the step and the LitEma shadow (ldm/modules/ema.py:5;
-    None without EMA)."""
+    """The trainable ControlNet (in a DDP wrap under data parallelism; laid
+    out on a mesh under ``shard_params_tp``), its optimizer, the step and
+    the LitEma shadow (ldm/modules/ema.py:5; None without EMA), laid out
+    like the ControlNet."""
     controlnet: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
     ema: Optional[nn.Module] = None
 
     def state_dict(self) -> dict:
-        return {"params": unwrap(self.controlnet).state_dict(),
-                "opt_state": self.optimizer.state_dict(),
+        """The whole state, as one process holds it (on a mesh a gather:
+        every rank calls it)."""
+        net = unwrap(self.controlnet)
+        return {"params": S.full_state_dict(net),
+                "opt_state": S.full_optimizer_state(self.optimizer, net),
                 "step": int(self.step),
-                "ema": None if self.ema is None else self.ema.state_dict()}
+                "ema": None if self.ema is None else
+                S.full_state_dict(self.ema)}
 
     def load_state_dict(self, sd: dict) -> None:
-        unwrap(self.controlnet).load_state_dict(sd["params"])
-        self.optimizer.load_state_dict(sd["opt_state"])
+        """Load a whole state (from any mesh or none), each rank keeping
+        its slices."""
+        net = unwrap(self.controlnet)
+        S.load_full_state_dict(net, sd["params"])
+        self.optimizer.load_state_dict(
+            S.shard_optimizer_state(sd["opt_state"], self.optimizer, net))
         self.step = int(sd["step"])
         if self.ema is not None and sd["ema"] is not None:
-            self.ema.load_state_dict(sd["ema"])
+            S.load_full_state_dict(self.ema, sd["ema"])
 
 
 def make_optimizer(lr: float = 1e-5, weight_decay: float = 0.0
@@ -85,10 +104,14 @@ def init_train_state(controlnet: nn.Module, optimizer, *,
     return TrainState(net, optimizer(net.parameters()), 0, ema)
 
 
-# the ops whose outputs "dots" keeps: matmuls and convolutions
+# the ops whose outputs "dots" keeps: matmuls and convolutions, and the
+# row-parallel layers' sums over the model ranks (an all-reduce and its
+# wait; no other op of a step's forward waits on a functional collective)
 _DOT_OPS = frozenset(
-    getattr(torch.ops.aten, name).default
-    for name in ("mm", "addmm", "bmm", "baddbmm", "convolution"))
+    [getattr(torch.ops.aten, name).default
+     for name in ("mm", "addmm", "bmm", "baddbmm", "convolution")]
+    + [torch.ops._c10d_functional.all_reduce.default,
+       torch.ops._c10d_functional.wait_tensor.default])
 
 
 # the ops whose outputs "offload" keeps on the host: the matmuls without a
@@ -191,9 +214,16 @@ def diffusion_target(schedule: NoiseSchedule, pred_type: str, latents, noise,
     raise ValueError(pred_type)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor (optax.global_norm)."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def global_norm(tensors, layout=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor (optax.global_norm). With
+    a mesh layout (parallel/sharding.py's ``MeshLayout``) `tensors` are one
+    per parameter of it, in its order, each this rank's slice: a split
+    tensor's square sum is summed over its axis's ranks, a whole one's
+    taken once, so every element counts once."""
+    squares = [t.float().square().sum() for t in tensors]
+    if layout is None:
+        return torch.sqrt(sum(squares))
+    return torch.sqrt(layout.sum_over_shards(squares))
 
 
 @torch.no_grad()
@@ -239,8 +269,15 @@ def make_train_step(schedule: NoiseSchedule, *,
         target = diffusion_target(schedule, pred_type, lat, noise, t)
         loss = torch.mean(torch.square(pred.float() - target.float()))
         loss.backward()
-        grad_norm = global_norm(p.grad for p in state.controlnet.parameters()
-                                if p.grad is not None)
+        layout = S.layout_of(unwrap(state.controlnet))
+        if layout is None:
+            grad_norm = global_norm(p.grad for p in
+                                    state.controlnet.parameters()
+                                    if p.grad is not None)
+        else:
+            layout.reduce_gradients()
+            grad_norm = global_norm((p.grad for p in layout.params.values()),
+                                    layout)
         state.optimizer.step()
         if state.ema is not None:
             ema_update(state.ema, unwrap(state.controlnet), state.step)

@@ -12,8 +12,13 @@ an initialised ``torch.distributed`` (a ``torchrun`` launch), every rank
 draws the crops and flips of the same global batch and decodes only its
 slice, the ControlNet trains in a DDP wrap, the noise and timesteps are
 drawn for the global batch and sliced, and rank 0 alone writes metrics,
-grids, checkpoints and the export. Where JAX lays the ControlNet out by TP/FSDP on a mesh
-(train_controlnet.py:124-131), every rank here holds all of it.
+grids, checkpoints and the export. On a (data, model) mesh (``mesh=``,
+parallel/sharding.py's ``make_mesh``) the ControlNet and its EMA are laid
+out by ``shard_params_tp(..., also_fsdp=True)`` and the frozen models
+replicated, as JAX does (train_controlnet.py:124-131); the batch is split
+over "data" (the ranks of one data group take the same slice), and every
+rank runs the previews, the checkpoint's gather and the export's, which
+are collectives, while rank 0 alone writes.
 
 Everything runs outside the pipelines' ``torch.inference_mode``: tensors
 made there cannot enter autograd, so the trainer builds its own.
@@ -28,8 +33,8 @@ import numpy as np
 import torch
 
 from editanything_tpu_torch.parallel.sharding import (
-    data_parallel, default_group, init_from_env, is_main, mean_over,
-    rank_and_size, shard_batch, unwrap)
+    data_group, data_parallel, default_group, full_state_dict, init_from_env,
+    is_main, mean_over, rank_and_size, shard_batch, shard_params_tp, unwrap)
 from editanything_tpu_torch.samplers.schedule import (make_schedule,
                                                       make_timesteps)
 from editanything_tpu_torch.train.checkpointing import CheckpointManager
@@ -98,13 +103,16 @@ def make_sample_program(unet_cfg, cn_cfg, schedule, *, num_steps: int = 20,
     return program
 
 
-def export_controlnet(controlnet, path: str) -> None:
+def export_controlnet(controlnet, path: Optional[str]) -> None:
     """A ControlNet's weights as a diffusers-layout ``.safetensors`` in fp32
     (its ``state_dict`` keys are diffusers', as JAX's ``tree_to_diffusers``
-    lays them out)."""
+    lays them out). On a mesh the weights are gathered first, a collective
+    that every rank calls; those that do not write pass no `path`."""
     from editanything_tpu_torch.checkpoints.safetensors_io import save_file
-    save_file({k: v.detach().float().contiguous()
-               for k, v in controlnet.state_dict().items()}, path)
+    sd = full_state_dict(controlnet)
+    if path:
+        save_file({k: v.detach().float().contiguous() for k, v in sd.items()},
+                  path)
 
 
 def train(*, data_path: str, txt_path: str, out_dir: str, bundle=None,
@@ -113,7 +121,7 @@ def train(*, data_path: str, txt_path: str, out_dir: str, bundle=None,
           ckpt_every: int = 1000, seed: int = 0, remat=True,
           use_ema: bool = True, config_yaml=None, sample_steps: int = 20,
           sample_guidance: float = 9.0, export_path: Optional[str] = None,
-          device="cuda", group=None):
+          device="cuda", group=None, mesh=None):
     """Train the bundle's "sam" ControlNet on an SA-1B-layout folder.
     `bundle` supplies the frozen UNet, VAE and text tower and the
     ControlNet's initial weights (default: ``random_bundle`` at the
@@ -138,7 +146,11 @@ def train(*, data_path: str, txt_path: str, out_dir: str, bundle=None,
       the default group when one is initialised, else none): each rank
       takes its slice of every global batch of `batch_size`, which must
       divide by the ranks, and the ControlNet trains in a DDP wrap. N
-      ranks train as one process on the whole batch does."""
+      ranks train as one process on the whole batch does;
+    - mesh: a (data, model) ``DeviceMesh`` (``make_mesh``) instead: the
+      ControlNet and its EMA split by tensor parallelism over "model" and
+      FSDP over "data", the batch split over "data". A run on any mesh
+      trains as one process does. Passing `group` too raises."""
     from editanything_tpu_torch.data import SAMDataset, make_batcher
 
     if bundle is None:
@@ -156,6 +168,11 @@ def train(*, data_path: str, txt_path: str, out_dir: str, bundle=None,
     else:
         schedule = make_schedule()
     bundle.unet.requires_grad_(False)
+    if mesh is not None:
+        if group is not None:
+            raise ValueError("train() takes group= (DDP) or mesh=, not both")
+        from editanything_tpu_torch.pipelines.bundle import place_on_mesh
+        place_on_mesh(bundle, mesh)
     train_step = make_train_step(schedule, remat=remat)
     state = init_train_state(controlnet, make_optimizer(lr), use_ema=use_ema)
     pre = make_preprocessor()
@@ -163,9 +180,16 @@ def train(*, data_path: str, txt_path: str, out_dir: str, bundle=None,
                                  num_steps=sample_steps,
                                  guidance_scale=sample_guidance)
 
+    if mesh is not None:
+        shard_params_tp(mesh, state.controlnet, also_fsdp=True)
+        if state.ema is not None:
+            shard_params_tp(mesh, state.ema, also_fsdp=True)
+        # the mesh spans the default group: its rank 0 writes
+        batch_group, main = data_group(mesh), is_main(default_group())
+    else:
+        group = batch_group = default_group(group)
+        main = is_main(group)
     dataset = SAMDataset(data_path, txt_path, resolution=resolution, seed=seed)
-    group = default_group(group)
-    main = is_main(group)
     metrics_log = MetricLogger(out_dir, every=log_every, is_main=main)
     image_log = ImageLogger(out_dir, every=image_every, is_main=main)
     ckpt = CheckpointManager(out_dir + "/ckpt", save_interval_steps=ckpt_every,
@@ -206,22 +230,24 @@ def train(*, data_path: str, txt_path: str, out_dir: str, bundle=None,
     while step < max_steps:
         for batch in make_batcher(dataset, batch_size=batch_size,
                                   seed=seed + step,
-                                  part=rank_and_size(group)):
+                                  part=rank_and_size(batch_group)):
             latents, context = pre(bundle.vae, bundle.text,
                                    nchw(batch["jpg"], dev, dtype),
                                    token_ids(batch["txt"]))
             if val is None:
                 val = (batch, latents, context)
             latents = latents.to(dtype)
-            t, noise = global_t_noise(schedule, latents, generator, group)
+            t, noise = global_t_noise(schedule, latents, generator,
+                                      batch_group)
             state, m = train_step(
                 state, bundle.unet,
                 {"latents": latents, "context": context.to(dtype),
                  "hint": nchw(batch["hint"], dev, dtype)}, t=t, noise=noise)
-            m["loss"] = mean_over(m["loss"], group)
+            m["loss"] = mean_over(m["loss"], batch_group)
             step = state.step
             metrics_log.log(step, m)
-            if image_log.is_main and step % image_log.every == 0:
+            # on a mesh the previews' forwards gather: every rank runs them
+            if (main or mesh is not None) and step % image_log.every == 0:
                 image_log.maybe_log(step, sample_grids(*val))
             ckpt.maybe_save(step, state)
             if step >= max_steps:
@@ -229,9 +255,9 @@ def train(*, data_path: str, txt_path: str, out_dir: str, bundle=None,
     ckpt.save(step, state)
     ckpt.close()
     state.controlnet = unwrap(state.controlnet)
-    if export_path and main:
+    if export_path and (main or mesh is not None):
         export_controlnet(state.ema if state.ema is not None
-                          else state.controlnet, export_path)
+                          else state.controlnet, export_path if main else None)
     return state
 
 

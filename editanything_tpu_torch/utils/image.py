@@ -23,6 +23,8 @@ in/out, where a value's exact side of an integer matters (a truncating
 uint8 cast).
 ``resize_uint8_bilinear`` stands in for PIL's BILINEAR resize of uint8
 images (within one level of it), so the SAM phase needs no PIL.
+``get_bounding_box`` is the JAX package's, the reference's swapped axes
+and all.
 """
 
 from __future__ import annotations
@@ -54,6 +56,21 @@ def HWC3(x: np.ndarray) -> np.ndarray:
     alpha = x[:, :, 3:4].astype(np.float32) / 255.0
     y = color * alpha + 255.0 * (1.0 - alpha)
     return y.clip(0, 255).astype(np.uint8)
+
+
+def get_bounding_box(mask) -> List[int]:
+    """Mask (H, W) or (H, W, C), channel 0 read -> [rmin, cmin, rmax,
+    cmax] with the reference's swapped axes kept (annotator/util.py:57-73,
+    as the JAX package keeps them): "rows" are the columns that hold the
+    mask, "cols" the rows. An empty mask raises IndexError, as there."""
+    mask = np.array(mask).astype(np.uint8)
+    if mask.ndim == 3:
+        mask = mask[:, :, 0]
+    rows = np.any(mask, axis=0)
+    cols = np.any(mask, axis=1)
+    rmin, rmax = np.where(rows)[0][[0, -1]]
+    cmin, cmax = np.where(cols)[0][[0, -1]]
+    return [int(rmin), int(cmin), int(rmax), int(cmax)]
 
 
 # PIL's separable resampling (libImaging/Resample.c): its filters and

@@ -229,9 +229,11 @@ F32_TEST_SHAPES = [
     (1, 16, 4096, 4096, 208, 80), (2, 8, 1024, 77, 80, 80),
 ]
 # chip_smoke.py TRAIN_ATTN_SHAPES: a ControlNet training step at 512^2 with
-# batch 2 and its preprocessor's VAE encoder mid attention
+# batch 2 (64x64 self also with a tensor-parallel rank's 4 and 2 of its 8
+# heads) and its preprocessor's VAE encoder mid attention
 F32_TRAIN_SHAPES = [
-    (2, 8, 4096, 4096, 40, 40), (2, 8, 4096, 77, 40, 40),
+    (2, 8, 4096, 4096, 40, 40), (2, 4, 4096, 4096, 40, 40),
+    (2, 2, 4096, 4096, 40, 40), (2, 8, 4096, 77, 40, 40),
     (2, 8, 1024, 1024, 80, 80), (2, 8, 256, 256, 160, 160),
     (2, 8, 64, 64, 160, 160), (2, 1, 4096, 4096, 512, 512),
 ]

@@ -167,6 +167,39 @@ def test_flash_attention_fp32_training_shapes_match_plain(cuda_device, b, h,
     assert err <= bound
 
 
+# fp32 at a tensor-parallel rank's heads (parallel/sharding.py): the UNet's
+# 64x64 self-attention at batch 2 with 4 and with 2 of its 8 heads, as 2
+# and 4 model ranks run it; fewer heads, fewer blocks, so the plan may
+# split the keys
+F32_TP_CASES = [(2, 4, 4096, 4096, 40, 40), (2, 2, 4096, 4096, 40, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,n,m,dqk,dv", F32_TP_CASES)
+def test_flash_attention_fp32_tensor_parallel_heads(cuda_device, b, h, n, m,
+                                                    dqk, dv):
+    """Within the fp32 bound of the twin, and the bound rejects two planted
+    faults made with the twin: the last key tile of the plan dropped and
+    the logits scaled by 1.05."""
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in _qkv(10, b, h, n, m, dqk, dv))
+    plan = tfa.flash_f32_plan(b, h, n, m, dqk, dv)
+    print(f"flash_f32_plan{(b, h, n, m, dqk, dv)}: {plan}")
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    want = tfa.flash_attention_reference(q, k, v)
+    err, bound = _attention_err_and_bound(got, want)
+    assert err <= bound
+    keep = (m - 1) // plan.kb * plan.kb
+    scale = dqk ** -0.5
+    for fault in (tfa.flash_attention_reference(q, k[:, :, :keep],
+                                                v[:, :, :keep]),
+                  tfa.flash_attention_reference(q, k, v, scale=1.05 * scale)):
+        assert _attention_err_and_bound(fault, want)[0] > bound
+
+
 # BLIP-2's attention shapes (b, h, n, m, d): the EVA ViT-g/14 at 224^2, 16
 # heads of 88 (padded to 96 inside the kernel) over 257 tokens, for one
 # caption and for semantic's 10 crops; the Q-Former's 32 queries, 12 heads
