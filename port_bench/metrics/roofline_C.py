@@ -1,0 +1,10 @@
+"""Percent of kernel C's roofline, in any cell that runs it
+(``roofline_C.<cell kind>``): the bounds of the profiled calls of its
+entry (``entries/C.py``) over the device time of the work launched
+inside them."""
+
+from port_bench import harness as H
+
+
+def read(run):
+    return H.roofline_share(run, "C")
