@@ -31,6 +31,7 @@ from editanything_tpu_torch.samplers import dpm as dpm_mod
 from editanything_tpu_torch.samplers import plms as plms_mod
 from editanything_tpu_torch.samplers import schedule as sched
 from editanything_tpu_torch.samplers import unipc as unipc_mod
+from editanything_tpu_torch.utils import trace
 
 INPAINT_MODES = ("none", "unet9", "blend", "mix")
 SAMPLERS = ("unipc", "ddim", "plms", "dpm", "dpm3", "dpms1", "dpms2", "dpms3")
@@ -230,12 +231,15 @@ def build_denoiser(cfg: DenoiseConfig, schedule: sched.NoiseSchedule,
         lat_in, unet_in, ctx, tb = model_inputs(latents, t, context, inputs)
         down_res = mid_res = None
         if cfg.controlnets:
-            down_res, mid_res = controlnet_residuals(
-                params, latents, lat_in, t, tb, ctx, context, inputs, hoisted,
-                ref=ref_cn)
-        out = params["unet"](unet_in, tb, ctx, down_block_residuals=down_res,
-                             mid_block_residual=mid_res,
-                             ctx_kv=hoisted["kv_unet"], ref=ref_unet)
+            with trace.span("denoise.controlnets"):
+                down_res, mid_res = controlnet_residuals(
+                    params, latents, lat_in, t, tb, ctx, context, inputs,
+                    hoisted, ref=ref_cn)
+        with trace.span("denoise.unet"):
+            out = params["unet"](unet_in, tb, ctx,
+                                 down_block_residuals=down_res,
+                                 mid_block_residual=mid_res,
+                                 ctx_kv=hoisted["kv_unet"], ref=ref_unet)
         return guided(out, inputs)
 
     def encoder_pass(params, latents, t, context, inputs, hoisted):
@@ -243,13 +247,16 @@ def build_denoiser(cfg: DenoiseConfig, schedule: sched.NoiseSchedule,
         the ControlNet residuals added. Returns (residuals, hidden)."""
         unet = params["unet"]
         lat_in, unet_in, ctx, tb = model_inputs(latents, t, context, inputs)
-        temb = unet.time_embed(tb, unet_in.dtype)
-        h, residuals = unet.encode(unet_in, temb, ctx,
-                                   ctx_kv=hoisted["kv_unet"])
-        h = unet.middle(h, temb, ctx, ctx_kv=hoisted["kv_unet"])
+        with trace.span("denoise.unet"):
+            temb = unet.time_embed(tb, unet_in.dtype)
+            h, residuals = unet.encode(unet_in, temb, ctx,
+                                       ctx_kv=hoisted["kv_unet"])
+            h = unet.middle(h, temb, ctx, ctx_kv=hoisted["kv_unet"])
         if cfg.controlnets:
-            down, mid = controlnet_residuals(params, latents, lat_in, t, tb,
-                                             ctx, context, inputs, hoisted)
+            with trace.span("denoise.controlnets"):
+                down, mid = controlnet_residuals(params, latents, lat_in, t,
+                                                 tb, ctx, context, inputs,
+                                                 hoisted)
             residuals = [r + c.to(r.dtype) for r, c in zip(residuals, down)]
             h = h + mid.to(h.dtype)
         return residuals, h
@@ -265,9 +272,10 @@ def build_denoiser(cfg: DenoiseConfig, schedule: sched.NoiseSchedule,
         unet = params["unet"]
         tb = torch.full((2 * latents.shape[0],), t, dtype=torch.int32,
                         device=latents.device)
-        temb = unet.time_embed(tb, latents.dtype)
-        out = unet.decode(h, residuals, temb, cfg_context(context),
-                          ctx_kv=hoisted["kv_unet"])
+        with trace.span("denoise.unet"):
+            temb = unet.time_embed(tb, latents.dtype)
+            out = unet.decode(h, residuals, temb, cfg_context(context),
+                              ctx_kv=hoisted["kv_unet"])
         return guided(out, inputs), cache
 
     # the paste window as the JAX package computes it: float32 ratio * n
@@ -317,40 +325,52 @@ def build_denoiser(cfg: DenoiseConfig, schedule: sched.NoiseSchedule,
     def run_unipc(evaluate, latents, inputs):
         state = unipc_mod.unipc_init(latents)
         for i in range(n):
-            out = evaluate(state.sample, i, ts[i])
-            state, prev = unipc_mod.unipc_step(schedule, state, out, ts,
-                                               step=i)
-            state = state._replace(sample=blend_outside_mask(prev, i, inputs))
+            with trace.span("denoise.step"):
+                out = evaluate(state.sample, i, ts[i])
+                with trace.span("denoise.sampler"):
+                    state, prev = unipc_mod.unipc_step(schedule, state, out,
+                                                       ts, step=i)
+                    state = state._replace(
+                        sample=blend_outside_mask(prev, i, inputs))
         return state.sample
 
     def run_ddim(evaluate, latents, inputs):
         x = latents.float()
         for i in range(n):
             t_prev = ts[i + 1] if i + 1 < n else -1
-            out = evaluate(x, i, ts[i])
-            x, _ = ddim_mod.ddim_step(
-                schedule, x, out, ts[i], t_prev, eta=cfg.eta,
-                noise=inputs["eta_noise"][i] if cfg.eta > 0.0 else None)
-            x = blend_outside_mask(x, i, inputs)
+            with trace.span("denoise.step"):
+                out = evaluate(x, i, ts[i])
+                with trace.span("denoise.sampler"):
+                    x, _ = ddim_mod.ddim_step(
+                        schedule, x, out, ts[i], t_prev, eta=cfg.eta,
+                        noise=(inputs["eta_noise"][i] if cfg.eta > 0.0
+                               else None))
+                    x = blend_outside_mask(x, i, inputs)
         return x
 
     def run_dpm(evaluate, latents, inputs):
         order = 3 if cfg.sampler == "dpm3" else 2
         state = dpm_mod.dpm_init(latents)
         for i in range(n):
-            out = evaluate(state.sample, i, ts[i])
-            state, prev = dpm_mod.dpm_step(schedule, state, out, ts, i,
-                                           order=order)
-            state = state._replace(sample=blend_outside_mask(prev, i, inputs))
+            with trace.span("denoise.step"):
+                out = evaluate(state.sample, i, ts[i])
+                with trace.span("denoise.sampler"):
+                    state, prev = dpm_mod.dpm_step(schedule, state, out, ts,
+                                                   i, order=order)
+                    state = state._replace(
+                        sample=blend_outside_mask(prev, i, inputs))
         return state.sample
 
     def run_singlestep(evaluate, latents, inputs):
         state = dpm_mod.singlestep_init(latents)
         for i in range(n):
-            out = evaluate(state.sample, i, ts[i])
-            state, prev = dpm_mod.singlestep_step(schedule, state, out, plan,
-                                                  i)
-            state = state._replace(sample=blend_outside_mask(prev, i, inputs))
+            with trace.span("denoise.step"):
+                out = evaluate(state.sample, i, ts[i])
+                with trace.span("denoise.sampler"):
+                    state, prev = dpm_mod.singlestep_step(schedule, state,
+                                                          out, plan, i)
+                    state = state._replace(
+                        sample=blend_outside_mask(prev, i, inputs))
         return state.sample
 
     def run_plms(evaluate, latents, inputs):
@@ -358,24 +378,30 @@ def build_denoiser(cfg: DenoiseConfig, schedule: sched.NoiseSchedule,
         for i in range(n):
             t = ts[i]
             t_prev = ts[i + 1] if i + 1 < n else -1
-            out = evaluate(state.sample, i, t)
-            out_next = out
-            if i == 0:
-                # the midpoint warm-up's second evaluation, after a
-                # first-order step to t_prev
-                eps = plms_mod._to_eps(schedule, state.sample, out, t)
-                x1 = plms_mod._x_prev(schedule, state.sample, eps, t, t_prev)
-                out_next = evaluate(x1, i, max(t_prev, 0))
-            state, prev = plms_mod.plms_step(schedule, state, out, out_next,
-                                             t, t_prev, i)
-            state = state._replace(sample=blend_outside_mask(prev, i, inputs))
+            with trace.span("denoise.step"):
+                out = evaluate(state.sample, i, t)
+                out_next = out
+                if i == 0:
+                    # the midpoint warm-up's second evaluation, after a
+                    # first-order step to t_prev
+                    eps = plms_mod._to_eps(schedule, state.sample, out, t)
+                    x1 = plms_mod._x_prev(schedule, state.sample, eps, t,
+                                          t_prev)
+                    out_next = evaluate(x1, i, max(t_prev, 0))
+                with trace.span("denoise.sampler"):
+                    state, prev = plms_mod.plms_step(
+                        schedule, state, out, out_next, t, t_prev, i)
+                    state = state._replace(
+                        sample=blend_outside_mask(prev, i, inputs))
         return state.sample
 
     loop = {"unipc": run_unipc, "ddim": run_ddim, "plms": run_plms,
             "dpm": run_dpm, "dpm3": run_dpm}.get(cfg.sampler, run_singlestep)
 
     def run(params, latents, context, inputs):
-        hoisted = precompute_hints(params, inputs, latents.dtype, context)
+        with trace.span("denoise.hints"):
+            hoisted = precompute_hints(params, inputs, latents.dtype,
+                                       context)
         cache = None
 
         def evaluate(x, i, t):

@@ -12,6 +12,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from editanything_tpu_torch.utils import trace
+
 
 def window_ids(tokenizer, prompt: str, negative_prompt: str = "",
                max_windows: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
@@ -51,6 +53,7 @@ def get_pipeline_embeds(text_model, tokenizer, prompt: str,
                             max_windows=max_windows)
     w = pids.shape[0]
     device = text_model.embeddings.token_embedding.weight.device
+    trace.count("sync.text.ids")
     ids = torch.from_numpy(np.concatenate([pids, nids])).to(device, torch.long)
     hidden = text_model(ids, layer_skip=layer_skip)
     d = hidden.shape[-1]

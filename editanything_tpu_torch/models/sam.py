@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from editanything_tpu_torch.core import kernels as K
 from editanything_tpu_torch.core import layers as L
+from editanything_tpu_torch.utils import trace
 from editanything_tpu_torch.utils.image import resize_uint8_bilinear
 
 
@@ -450,6 +451,8 @@ PIXEL_STD = (58.395, 57.12, 57.375)
 def preprocess(image, cfg: SAMConfig):
     """uint8 (h, w, 3) tensor, long side already img_size -> normalised
     fp32 (1, 3, S, S), zero-padded at the bottom and right (sam.py:578-584)."""
+    # two copies from host memory, each waiting on the device
+    trace.count("sync.sam.pixel_stats", 2)
     mean = torch.tensor(PIXEL_MEAN, device=image.device)
     std = torch.tensor(PIXEL_STD, device=image.device)
     x = (image.float() - mean) / std
@@ -466,5 +469,6 @@ def prepare_image(image: np.ndarray, cfg: SAMConfig, device):
     h, w = image.shape[:2]
     scale = cfg.img_size / max(h, w)
     nh, nw = int(h * scale + 0.5), int(w * scale + 0.5)
+    trace.count("sync.sam.image")
     img = torch.from_numpy(np.ascontiguousarray(image)).to(device)
     return preprocess(resize_uint8_bilinear(img, (nh, nw)), cfg), (nh, nw)

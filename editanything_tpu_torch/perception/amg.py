@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from editanything_tpu_torch.models import sam as SAM
+from editanything_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,16 +102,22 @@ def greedy_nms(boxes, scores, valid, iou_thresh: float):
     n = boxes.shape[0]
     order = torch.argsort(-torch.where(valid, scores.float(), -torch.inf),
                           stable=True)
-    n_valid = int(valid.sum())
+    n_valid = trace.host_read(valid.sum(), "amg.valid_count", int)
+    trace.count("amg.candidates_valid", n_valid)
     top = order[:n_valid]
-    over = (_box_iou(boxes[top]) > iou_thresh).cpu().numpy()
+    over = trace.host_read(_box_iou(boxes[top]) > iou_thresh,
+                           "amg.iou_matrix").numpy()
     alive = np.ones(n_valid, bool)
     kept = np.zeros(n_valid, bool)
     for i in range(n_valid):
         if alive[i]:
             kept[i] = True
             alive &= ~over[i]
+    trace.count("amg.kept", int(kept.sum()))
     keep = torch.zeros(n, dtype=torch.bool, device=boxes.device)
+    if n_valid:
+        # a copy from host memory waits on the device; an empty one does not
+        trace.count("sync.amg.keep")
     keep[top] = torch.from_numpy(kept).to(boxes.device)
     return keep
 
@@ -132,6 +139,8 @@ def select_candidates(logits, iou, amg_cfg: AMGConfig):
     rank = torch.cumsum(keep.to(torch.int64), 0) - 1
     into = keep & (rank < k)
     sel = torch.full((k,), -1, dtype=torch.int64, device=logits.device)
+    # each boolean-mask index reads its count to the host
+    trace.count("sync.amg.slots", 2)
     sel[rank[into]] = torch.arange(c, device=logits.device)[into]
     slot_valid = sel >= 0
     sel_safe = sel.clamp(min=0)
@@ -180,12 +189,15 @@ def build_amg(sam_cfg: SAM.SAMConfig, amg_cfg: AMGConfig):
     """
     @torch.inference_mode()
     def encode_fn(sam, image):
-        return sam.image_encoder(image)
+        with trace.span("sam.encode"):
+            return sam.image_encoder(image)
 
     @torch.inference_mode()
     def generate_fn(sam, embedding, points):
-        logits, iou = decode_candidates(sam, amg_cfg, embedding, points)
-        return select_candidates(logits, iou, amg_cfg)
+        with trace.span("amg.decode"):
+            logits, iou = decode_candidates(sam, amg_cfg, embedding, points)
+        with trace.span("amg.select"):
+            return select_candidates(logits, iou, amg_cfg)
 
     return encode_fn, generate_fn
 

@@ -31,6 +31,7 @@ from editanything_tpu_torch.engine.refctrl import RefConfig
 from editanything_tpu_torch.pipelines.bundle import ModelBundle
 from editanything_tpu_torch.pipelines.generate import GenerationPipeline
 from editanything_tpu_torch.samplers.schedule import add_noise, make_timesteps
+from editanything_tpu_torch.utils import trace
 from editanything_tpu_torch.utils.image import (HWC3, resize_bilinear,
                                                 resize_image, resize_nearest)
 
@@ -81,6 +82,8 @@ class EditPipeline(GenerationPipeline):
         img01 = img_uint8.astype(np.float32) / 255.0
         masked = img01 * (mask_hw[..., None] < 0.5) * 2.0 - 1.0
         x = torch.from_numpy(masked.reshape((-1,) + masked.shape[-3:]))
+        # the masked images' and the mask's copies to the device
+        trace.count("sync.edit.latent_inputs", 2)
         lat = self._encode(x.permute(0, 3, 1, 2).to(b.device, b.dtype)).float()
         lat = lat.expand(num_samples, -1, -1, -1)
         mlat = resize_nearest(torch.from_numpy(mask_hw)[None, None],
@@ -195,22 +198,27 @@ class EditPipeline(GenerationPipeline):
         denoise = build_denoiser(dcfg, schedule, ts)
 
         context = self.embed_prompts(prompt, negative_prompt, num_samples)
-        # control conditions: SAM map first, inpaint condition last
-        conds = [self.prepare_condition(condition_image, h, w, num_samples)]
-        scales = [float(control_scale)]
-        if len(self.controls) > 1:
-            inp = make_inpaint_condition(img.astype(np.float32) / 255.0, m)
-            inp = torch.from_numpy(inp).permute(2, 0, 1)[None]
-            conds.append(inp.expand(num_samples, -1, -1, -1)
-                         .to(device, b.dtype))
-            scales.append(1.0)
+        with trace.span("edit.prepare"):
+            # control conditions: SAM map first, inpaint condition last
+            conds = [self.prepare_condition(condition_image, h, w,
+                                            num_samples)]
+            scales = [float(control_scale)]
+            if len(self.controls) > 1:
+                inp = make_inpaint_condition(img.astype(np.float32) / 255.0,
+                                             m)
+                inp = torch.from_numpy(inp).permute(2, 0, 1)[None]
+                trace.count("sync.edit.inpaint_condition")
+                conds.append(inp.expand(num_samples, -1, -1, -1)
+                             .to(device, b.dtype))
+                scales.append(1.0)
 
-        image_latents, mask_latents = self._latent_inputs(img, m, h, w,
-                                                          num_samples)
-        shape = image_latents.shape
-        if generator is None:
-            generator = torch.Generator(device).manual_seed(seed)
-        latents = self.initial_latents(shape, noise=noise, generator=generator)
+            image_latents, mask_latents = self._latent_inputs(img, m, h, w,
+                                                              num_samples)
+            shape = image_latents.shape
+            if generator is None:
+                generator = torch.Generator(device).manual_seed(seed)
+            latents = self.initial_latents(shape, noise=noise,
+                                           generator=generator)
 
         # the same tensor re-noises the original in blend mode
         inputs = {

@@ -54,6 +54,7 @@ from editanything_tpu_torch.perception.predictor import SamPredictor
 from editanything_tpu_torch.pipelines.bundle import ModelBundle
 from editanything_tpu_torch.pipelines.captioner import semantic_labels
 from editanything_tpu_torch.pipelines.edit import EditPipeline
+from editanything_tpu_torch.utils import trace
 from editanything_tpu_torch.utils.image import (HWC3, resize_bilinear,
                                                 resize_image, resize_points,
                                                 write_png)
@@ -157,17 +158,20 @@ class EditAnythingEditor:
         dev = self.sam_predictor.device
         x, (nh, nw) = SAM.prepare_image(image, sam_cfg, dev)
         emb = self._amg_encode(sam, x.to(sam.mask_decoder.iou_token.weight.dtype))
+        trace.count("sync.amg.points")
         pts = torch.from_numpy(_grid_points(self.amg_cfg, nh, nw)).to(dev)
         return self._amg_generate(sam, emb, pts)
 
     def get_sam_control(self, image: np.ndarray) -> np.ndarray:
         """Automatic masks of the whole image -> uint8 (H, W, 3) R/G ID
         condition map (editany_lora.py:522-525 and show_anns :426-449)."""
-        out = self._amg(image)
-        cond = encode_id_map(out["logits"], out["valid"],
-                             out_hw=image.shape[:2],
-                             mask_threshold=self.amg_cfg.mask_threshold)
-        return cond.cpu().numpy()
+        with trace.span("editor.sam"):
+            out = self._amg(image)
+            with trace.span("amg.id_map"):
+                cond = encode_id_map(
+                    out["logits"], out["valid"], out_hw=image.shape[:2],
+                    mask_threshold=self.amg_cfg.mask_threshold)
+                return trace.host_read(cond, "editor.id_map").numpy()
 
     # -- region-level semantics (sam2semantic.py) --------------------------
 
@@ -197,11 +201,13 @@ class EditAnythingEditor:
         "bilinear" does, their valid flags). Only these go to image
         resolution: all slots would be hundreds of MB at 1024^2."""
         out = self._amg(image)
-        valid = out["valid"].cpu().numpy()
+        valid = trace.host_read(out["valid"], "editor.regions").numpy()
         # int32 as the JAX package's, so that argsort breaks ties alike
-        areas = out["areas"].cpu().numpy().astype(np.int32)
+        areas = trace.host_read(out["areas"],
+                                "editor.regions").numpy().astype(np.int32)
         order = np.argsort(-np.where(valid, areas, -1))[:top_k]
-        logits = out["logits"].float().cpu()[torch.from_numpy(order)]
+        logits = trace.host_read(out["logits"].float(),
+                                 "editor.regions")[torch.from_numpy(order)]
         up = resize_bilinear(logits[:, None], image.shape[:2])[:, 0].numpy()
         return order, up, valid[order]
 
@@ -348,75 +354,78 @@ class EditAnythingEditor:
         H/8, W/8, 4)) or drawn from `generator` (default: seeded with
         `seed`); results_tile is empty otherwise. ``last_nonfinite`` counts
         both passes."""
-        if condition_model is not None:
-            self.set_condition_model(condition_model)
-        if os.environ.get("EA_SAVE_INPUTS") == "1":
-            # the reference's pickle-replay capture (annotator/util.py:77-95)
-            with open("input_data.pkl", "wb") as f:
-                pickle.dump({"args": (), "kwargs": dict(
-                    image=image, mask=mask, prompt=prompt,
-                    a_prompt=a_prompt, n_prompt=n_prompt,
-                    condition_image=condition_image,
-                    num_samples=num_samples,
-                    image_resolution=image_resolution,
-                    ddim_steps=ddim_steps, scale=scale,
-                    control_scale=control_scale, seed=seed)}, f)
-        image = HWC3(np.asarray(image, np.uint8))
-        if enable_auto_prompt and self.captioner is not None:
-            caption = self.get_blip2_text(
-                resize_image(image, min(detect_resolution, 512)))
-            prompt = f"{caption}, {prompt}" if prompt else caption
-        if ref_image is not None and (ref_auto_prompt or ref_textinv):
-            crop = self._crop_masked_region(ref_image, ref_mask)
-            if ref_auto_prompt and self.captioner is not None:
-                caption = self.get_blip2_text(crop)
-                ref_prompt = (ref_prompt or "") + caption
-                a_prompt = a_prompt + caption
-            if ref_textinv:
-                self._load_or_stage_textinv(crop, ref_textinv_path)
-        if condition_image is None:
-            condition_image = self.get_sam_control(
-                resize_image(image, detect_resolution))
-        positive = f"{prompt}, {a_prompt}" if a_prompt else prompt
-        if enable_all_generate or mask is None:
-            mask = np.full(image.shape[:2], 255, np.uint8)
-        if use_scale_map and scale_map is None:
-            # the SAM control off inside the edit region (editor.py:367-376)
-            m01 = np.asarray(mask, np.float32)
-            if m01.ndim == 3:
-                m01 = m01[..., 0]
-            if m01.max() > 1.5:
-                m01 = m01 / 255.0
-            scale_map = 1.0 - (m01 >= 0.5).astype(np.float32)
-        pipe = self.mix_pipe if use_alpha_mixing else self.pipe
-        results = pipe(
-            image=image, mask=mask, prompt=positive,
-            condition_image=condition_image, negative_prompt=n_prompt,
-            num_samples=num_samples, image_resolution=image_resolution,
-            num_steps=ddim_steps, guidance_scale=scale,
-            control_scale=control_scale, sampler=sampler, eta=eta,
-            scale_map=scale_map if use_scale_map else None,
-            alignment_ratio=alignment_ratio, alpha_weight=alpha_weight,
-            guess_mode=guess_mode, seed=seed,
-            encoder_interval=encoder_interval, generator=generator,
-            noise=noise, mix_noise=mix_noise, step_noise=step_noise,
-            eta_noise=eta_noise, ref_image=ref_image, ref_mask=ref_mask,
-            ref_prompt=ref_prompt, reference_attn=reference_attn,
-            reference_adain=reference_adain,
-            attention_auto_weight=attention_auto_weight,
-            gn_auto_weight=gn_auto_weight, style_fidelity=style_fidelity,
-            ref_scale=ref_scale, ref_sam_scale=ref_sam_scale,
-            ref_inpaint_scale=ref_inpaint_scale)
-        self.last_nonfinite = pipe.last_nonfinite
-        results_tile = []
-        if enable_tile and self.tile_control is not None:
-            results_tile = self.pipe.tile_refine(
-                results, mask, positive, tile_control=self.tile_control,
-                negative_prompt=n_prompt,
-                refine_image_resolution=refine_image_resolution,
+        with trace.span("editor.process"):
+            if condition_model is not None:
+                self.set_condition_model(condition_model)
+            if os.environ.get("EA_SAVE_INPUTS") == "1":
+                # the reference's pickle-replay capture
+                # (annotator/util.py:77-95)
+                with open("input_data.pkl", "wb") as f:
+                    pickle.dump({"args": (), "kwargs": dict(
+                        image=image, mask=mask, prompt=prompt,
+                        a_prompt=a_prompt, n_prompt=n_prompt,
+                        condition_image=condition_image,
+                        num_samples=num_samples,
+                        image_resolution=image_resolution,
+                        ddim_steps=ddim_steps, scale=scale,
+                        control_scale=control_scale, seed=seed)}, f)
+            image = HWC3(np.asarray(image, np.uint8))
+            if enable_auto_prompt and self.captioner is not None:
+                caption = self.get_blip2_text(
+                    resize_image(image, min(detect_resolution, 512)))
+                prompt = f"{caption}, {prompt}" if prompt else caption
+            if ref_image is not None and (ref_auto_prompt or ref_textinv):
+                crop = self._crop_masked_region(ref_image, ref_mask)
+                if ref_auto_prompt and self.captioner is not None:
+                    caption = self.get_blip2_text(crop)
+                    ref_prompt = (ref_prompt or "") + caption
+                    a_prompt = a_prompt + caption
+                if ref_textinv:
+                    self._load_or_stage_textinv(crop, ref_textinv_path)
+            if condition_image is None:
+                condition_image = self.get_sam_control(
+                    resize_image(image, detect_resolution))
+            positive = f"{prompt}, {a_prompt}" if a_prompt else prompt
+            if enable_all_generate or mask is None:
+                mask = np.full(image.shape[:2], 255, np.uint8)
+            if use_scale_map and scale_map is None:
+                # the SAM control off inside the edit region
+                # (editor.py:367-376)
+                m01 = np.asarray(mask, np.float32)
+                if m01.ndim == 3:
+                    m01 = m01[..., 0]
+                if m01.max() > 1.5:
+                    m01 = m01 / 255.0
+                scale_map = 1.0 - (m01 >= 0.5).astype(np.float32)
+            pipe = self.mix_pipe if use_alpha_mixing else self.pipe
+            results = pipe(
+                image=image, mask=mask, prompt=positive,
+                condition_image=condition_image, negative_prompt=n_prompt,
+                num_samples=num_samples, image_resolution=image_resolution,
                 num_steps=ddim_steps, guidance_scale=scale,
-                alignment_ratio=refine_alignment_ratio, seed=seed,
-                noise=tile_noise, generator=generator)
-            self.last_nonfinite += self.pipe.last_nonfinite
-        return (results_tile, [results[i] for i in range(len(results))],
-                [condition_image, mask], positive)
+                control_scale=control_scale, sampler=sampler, eta=eta,
+                scale_map=scale_map if use_scale_map else None,
+                alignment_ratio=alignment_ratio, alpha_weight=alpha_weight,
+                guess_mode=guess_mode, seed=seed,
+                encoder_interval=encoder_interval, generator=generator,
+                noise=noise, mix_noise=mix_noise, step_noise=step_noise,
+                eta_noise=eta_noise, ref_image=ref_image, ref_mask=ref_mask,
+                ref_prompt=ref_prompt, reference_attn=reference_attn,
+                reference_adain=reference_adain,
+                attention_auto_weight=attention_auto_weight,
+                gn_auto_weight=gn_auto_weight, style_fidelity=style_fidelity,
+                ref_scale=ref_scale, ref_sam_scale=ref_sam_scale,
+                ref_inpaint_scale=ref_inpaint_scale)
+            self.last_nonfinite = pipe.last_nonfinite
+            results_tile = []
+            if enable_tile and self.tile_control is not None:
+                results_tile = self.pipe.tile_refine(
+                    results, mask, positive, tile_control=self.tile_control,
+                    negative_prompt=n_prompt,
+                    refine_image_resolution=refine_image_resolution,
+                    num_steps=ddim_steps, guidance_scale=scale,
+                    alignment_ratio=refine_alignment_ratio, seed=seed,
+                    noise=tile_noise, generator=generator)
+                self.last_nonfinite += self.pipe.last_nonfinite
+            return (results_tile, [results[i] for i in range(len(results))],
+                    [condition_image, mask], positive)

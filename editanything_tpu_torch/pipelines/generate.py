@@ -41,6 +41,7 @@ from editanything_tpu_torch.pipelines.bundle import (ModelBundle,
                                                      place_on_mesh,
                                                      replicate_bundle)
 from editanything_tpu_torch.samplers.schedule import make_timesteps
+from editanything_tpu_torch.utils import trace
 from editanything_tpu_torch.utils.image import HWC3, resize_bilinear, resize_image
 
 
@@ -127,6 +128,7 @@ class GenerationPipeline:
             HWC3(condition_map.astype(np.uint8)).astype(np.float32)) / 255.0
         cond = resize_bilinear(cond.permute(2, 0, 1)[None], (h, w))
         b = self.bundle
+        trace.count("sync.edit.condition")
         return cond.expand(batch, -1, -1, -1).to(b.device, b.dtype)
 
     def prepare_scale_map(self, scale_map: np.ndarray, h: int, w: int,
@@ -139,9 +141,10 @@ class GenerationPipeline:
 
     def embed_prompts(self, prompt: str, negative_prompt: str, batch: int):
         b = self.bundle
-        cond, uncond = P.get_pipeline_embeds(
-            b.text, b.tokenizer, prompt, negative_prompt,
-            layer_skip=b.text_cfg.layer_skip)
+        with trace.span("edit.text"):
+            cond, uncond = P.get_pipeline_embeds(
+                b.text, b.tokenizer, prompt, negative_prompt,
+                layer_skip=b.text_cfg.layer_skip)
         rep = lambda x: x.expand(batch, -1, -1).to(b.dtype)
         return {"cond": rep(cond), "uncond": rep(uncond)}
 
@@ -218,11 +221,16 @@ class GenerationPipeline:
         spec = self._decode_tile_spec(latents.shape[-2] * f,
                                       latents.shape[-1] * f)
         tile, overlap = spec if spec else (None, 32)
-        imgs = self.bundle.vae.decode_from_latents(
-            latents.to(self.bundle.dtype), tile=tile, overlap=overlap).float()
-        self.last_nonfinite = int((~torch.isfinite(imgs)).sum())
-        out, self.last_nsfw = self.bundle.run_safety(
-            to_uint8(imgs.permute(0, 2, 3, 1).cpu().numpy()))
+        with trace.span("vae.decode"):
+            imgs = self.bundle.vae.decode_from_latents(
+                latents.to(self.bundle.dtype), tile=tile,
+                overlap=overlap).float()
+        self.last_nonfinite = trace.host_read(
+            (~torch.isfinite(imgs)).sum(), "vae.nonfinite", int)
+        with trace.span("edit.to_host"):
+            out = to_uint8(trace.host_read(imgs.permute(0, 2, 3, 1),
+                                           "edit.images").numpy())
+        out, self.last_nsfw = self.bundle.run_safety(out)
         return out
 
     @torch.inference_mode()

@@ -47,6 +47,7 @@ import torch.nn as nn
 from editanything_tpu_torch.parallel import sharding as S
 from editanything_tpu_torch.parallel.sharding import unwrap
 from editanything_tpu_torch.samplers.schedule import NoiseSchedule
+from editanything_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -182,8 +183,10 @@ def add_noise(schedule: NoiseSchedule, x0, noise, t):
 def alpha_sigma(schedule: NoiseSchedule, t, like):
     """(sqrt(abar_t), sqrt(1 - abar_t)) of per-sample `t`, fp32, shaped
     (B, 1, 1, 1) on `like`'s device."""
-    abar = schedule.alphas_cumprod[t.cpu()]
+    abar = schedule.alphas_cumprod[trace.host_read(t, "train.timesteps")]
     shape = (-1,) + (1,) * (like.dim() - 1)
+    # two copies from host memory, each waiting on the device
+    trace.count("sync.train.coeffs", 2)
     return (torch.sqrt(abar).reshape(shape).to(like.device),
             torch.sqrt(1.0 - abar).reshape(shape).to(like.device))
 
@@ -260,28 +263,35 @@ def make_train_step(schedule: NoiseSchedule, *,
 
     def train_step(state: TrainState, unet, batch, *, generator=None, t=None,
                    noise=None):
-        lat = batch["latents"]
-        t, noise = draw_t_noise(schedule, lat, generator, t, noise)
-        noisy = add_noise(schedule, lat, noise, t)
-        state.optimizer.zero_grad(set_to_none=True)
-        pred = backbone(state.controlnet, unet, noisy, t, batch["context"],
-                        batch["hint"])
-        target = diffusion_target(schedule, pred_type, lat, noise, t)
-        loss = torch.mean(torch.square(pred.float() - target.float()))
-        loss.backward()
-        layout = S.layout_of(unwrap(state.controlnet))
-        if layout is None:
-            grad_norm = global_norm(p.grad for p in
-                                    state.controlnet.parameters()
-                                    if p.grad is not None)
-        else:
-            layout.reduce_gradients()
-            grad_norm = global_norm((p.grad for p in layout.params.values()),
-                                    layout)
-        state.optimizer.step()
-        if state.ema is not None:
-            ema_update(state.ema, unwrap(state.controlnet), state.step)
-        state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm.detach()}
+        with trace.span("train.step"):
+            lat = batch["latents"]
+            with trace.span("train.forward"):
+                t, noise = draw_t_noise(schedule, lat, generator, t, noise)
+                noisy = add_noise(schedule, lat, noise, t)
+                state.optimizer.zero_grad(set_to_none=True)
+                pred = backbone(state.controlnet, unet, noisy, t,
+                                batch["context"], batch["hint"])
+                target = diffusion_target(schedule, pred_type, lat, noise, t)
+                loss = torch.mean(torch.square(pred.float() - target.float()))
+            with trace.span("train.backward"):
+                loss.backward()
+            with trace.span("train.optimizer"):
+                layout = S.layout_of(unwrap(state.controlnet))
+                if layout is None:
+                    grad_norm = global_norm(p.grad for p in
+                                            state.controlnet.parameters()
+                                            if p.grad is not None)
+                else:
+                    layout.reduce_gradients()
+                    grad_norm = global_norm(
+                        (p.grad for p in layout.params.values()), layout)
+                state.optimizer.step()
+            if state.ema is not None:
+                with trace.span("train.ema"):
+                    ema_update(state.ema, unwrap(state.controlnet),
+                               state.step)
+            state.step += 1
+            return state, {"loss": loss.detach(),
+                           "grad_norm": grad_norm.detach()}
 
     return train_step

@@ -1,16 +1,14 @@
-"""Training observability: metric logging, sample-grid images, profiling.
+"""Training observability: metric logging and sample-grid images.
 
 Counterpart of ``editanything_tpu/train/logging.py`` (the reference logs
 through Lightning and dumps DDIM grids with its ``ImageLogger``,
 cldm/logger.py:11-76, rank 0 only). The main process is rank 0 of
 ``torch.distributed`` when it is initialised, and otherwise the only one.
-Grids are PNGs written by ``utils/image.py::write_png``; ``profile_steps``
-wraps a range of steps in ``torch.profiler``.
+Grids are PNGs written by ``utils/image.py::write_png``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import time
@@ -19,6 +17,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from editanything_tpu_torch.utils import trace
 from editanything_tpu_torch.utils.image import write_png
 
 
@@ -47,7 +46,7 @@ class MetricLogger:
         rec = {"step": int(step), "wall_s": round(time.time() - self._t0, 2)}
         for k, v in metrics.items():
             try:
-                rec[k] = float(v)
+                rec[k] = trace.host_read(v, "train.log", float)
             except (TypeError, ValueError):
                 rec[k] = str(v)
         with open(self.path, "a") as f:
@@ -81,21 +80,3 @@ class ImageLogger:
                       np.concatenate(list(arr), axis=1))   # a strip
         return True
 
-
-@contextlib.contextmanager
-def profile_steps(log_dir: str, *, enabled: bool = True):
-    """``torch.profiler`` over the steps run inside, the CPU and (where
-    there is one) the GPU; the trace is written to `log_dir` as a Chrome
-    trace (TensorBoard's profiler plugin reads it too). Yields the
-    profiler, or None when disabled."""
-    if not enabled:
-        yield None
-        return
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}.json"))

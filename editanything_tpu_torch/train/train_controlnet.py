@@ -43,16 +43,19 @@ from editanything_tpu_torch.train.controlnet_train import (draw_t_noise,
                                                            make_optimizer,
                                                            make_train_step)
 from editanything_tpu_torch.train.logging import ImageLogger, MetricLogger
+from editanything_tpu_torch.utils import trace
 
 
 def nchw(x, device, dtype=torch.float32) -> torch.Tensor:
     """(B, H, W, C) numpy images -> (B, C, H, W) on `device` in `dtype`."""
+    trace.count("sync.train.batch")
     return torch.from_numpy(np.ascontiguousarray(x)).to(
         device=device, dtype=dtype).permute(0, 3, 1, 2).contiguous()
 
 
 def nhwc(x: torch.Tensor) -> np.ndarray:
-    return x.float().permute(0, 2, 3, 1).cpu().numpy()
+    return trace.host_read(x.float().permute(0, 2, 3, 1),
+                           "train.preview").numpy()
 
 
 def global_t_noise(schedule, latents, generator, group, blocks: int = 1):
@@ -203,6 +206,7 @@ def train(*, data_path: str, txt_path: str, out_dir: str, bundle=None,
     val = None     # the fixed batch of the sampling previews
 
     def token_ids(texts):
+        trace.count("sync.train.ids")
         return torch.from_numpy(bundle.tokenizer(
             texts, pad_to=ctx_len, truncate=True)).to(dev, torch.long)
 
@@ -228,12 +232,18 @@ def train(*, data_path: str, txt_path: str, out_dir: str, bundle=None,
 
     step = state.step
     while step < max_steps:
-        for batch in make_batcher(dataset, batch_size=batch_size,
-                                  seed=seed + step,
-                                  part=rank_and_size(batch_group)):
-            latents, context = pre(bundle.vae, bundle.text,
-                                   nchw(batch["jpg"], dev, dtype),
-                                   token_ids(batch["txt"]))
+        batches = iter(make_batcher(dataset, batch_size=batch_size,
+                                    seed=seed + step,
+                                    part=rank_and_size(batch_group)))
+        while True:
+            with trace.span("train.fetch"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            with trace.span("train.preprocess"):
+                latents, context = pre(bundle.vae, bundle.text,
+                                       nchw(batch["jpg"], dev, dtype),
+                                       token_ids(batch["txt"]))
             if val is None:
                 val = (batch, latents, context)
             latents = latents.to(dtype)
