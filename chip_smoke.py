@@ -27,7 +27,10 @@ non-zero, and nothing is caught:
      shapes, GroupNorm+SiLU at UNet and VAE shapes that take
      each of its launch plans (one CTA, a cluster, streamed through L2),
      each with its plan, blocks per SM, bound, host time per call and, where
-     there is no SiLU, F.group_norm's time, SAM's two-way transformer at
+     there is no SiLU, F.group_norm's time, and in bf16 its NHWC path on
+     the same activation laid out channels-last (as the half-precision
+     models hand it over: its plan, its error and time against the NCHW
+     path's), SAM's two-way transformer at
      the AMG's (256 prompts, 6 tokens) and the click predictor's (1 prompt, 21 tokens)
      shapes, SAM's upscale + hypernetwork at the AMG's 256 prompts and the
      click's 1, with its blocks per SM, and the fused
@@ -329,6 +332,7 @@ HIRES_BIG_VAE_TILES = 9
 GN_SHAPES = [
     ("unet resnet 64x64x320", (4, 320, 64, 64), 1e-5, True),
     ("unet resnet 64x64x960", (4, 960, 64, 64), 1e-5, True),
+    ("unet resnet 32x32x640", (4, 640, 32, 32), 1e-5, True),
     ("unet resnet 32x32x1920", (4, 1920, 32, 32), 1e-5, True),
     ("unet resnet 8x8x1280", (4, 1280, 8, 8), 1e-5, True),
     ("unet resnet 8x8x2560", (4, 2560, 8, 8), 1e-5, True),
@@ -844,9 +848,47 @@ def phase_kernels():
                 headline["group_norm_silu"] = (err, ms, plain, label)
                 headline["group_norm_silu work"] = group_norm_work(shape)
                 headline["group_norm_silu library"] = library
+            if dtype == torch.bfloat16:
+                group_norm_nhwc_row(label, x, w, bias, eps, silu, want, ms)
             del x, got, want
     torch.cuda.empty_cache()
     return headline
+
+
+def group_norm_nhwc_row(label, x, w, bias, eps, silu, want, nchw_ms):
+    """Kernel A's NHWC path on the same activation laid out channels-last,
+    as the half-precision models hand it over: within the bf16 bound of
+    the twin, the bound rejecting the planted variance fault, a
+    channels-last output, and its device time beside the NCHW path's
+    (each the least of three CUDA-event timings, in turns)."""
+    from editanything_tpu_torch.core import kernels as K
+    xc = x.contiguous(memory_format=torch.channels_last)
+    plan = K.group_norm_plan(*x.shape, 32, x.element_size(), nhwc=True,
+                             sms=K._sm_count(0))
+    run = lambda: K.group_norm_silu(xc, w, bias, eps=eps, apply_silu=silu)
+    nchw = lambda: K.group_norm_silu(x, w, bias, eps=eps, apply_silu=silu)
+    got = run()
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    bound = GN_BOUNDS[torch.bfloat16]
+    faults = {"variance x1.05": max_err(K.group_norm_silu_reference(
+        x, w / 1.05 ** 0.5, bias, eps=eps, apply_silu=silu), want)}
+    times = {"nhwc": [], "nchw": [nchw_ms]}
+    for _ in range(3):
+        times["nhwc"].append(cuda_ms(run, 10))
+        times["nchw"].append(cuda_ms(nchw, 10))
+    ms, ref = min(times["nhwc"]), min(times["nchw"])
+    print(f"[kernel] group_norm_silu bf16 nhwc {label} {tuple(x.shape)} "
+          f"eps={eps:g} silu={silu}: max_abs_err {err:.3e} <= {bound:g}; "
+          f"kernel {ms:.4f} ms against NCHW {ref:.4f} ms ({ms / ref:.2f}x); "
+          f"plan {plan.path}, k {plan.k}, {plan.ctas} CTAs of "
+          f"{plan.threads}, {plan.vec_bytes} B packs, {plan.share_bytes} B "
+          f"share")
+    what = f"group_norm_silu bf16 nhwc {label}"
+    check_faults(faults, bound, what)
+    check(err <= bound, f"{what}: {err} > {bound}")
+    check(K.is_channels_last(got), f"{what}: the output is not channels-last")
+    del xc, got
 
 
 def hires_rows(n: int) -> torch.Tensor:

@@ -14,7 +14,13 @@ GroupNorm(+SiLU) replaces the Pallas TPU kernel ``editanything_tpu/core/kernels.
 per-channel affine, then an optional SiLU, in one output write. One launch
 per call reads the activation once: one CTA, or a cluster of CTAs, holds
 each (image, group) slab on chip; where 16 CTAs cannot hold it, each holds
-what fits and reads the rest twice, the second time from L2.
+what fits and reads the rest twice, the second time from L2. A
+channels-last activation (the half-precision models' layout,
+``models/layout.py``) takes one of the kernel's NHWC paths: the (image,
+group) slab read as a group's run of channels in each pixel, or, where
+those runs are too short or the activation too large, every image's
+pixels across all channels, one co-resident CTA per SM, the statistics
+merged at a grid-wide sync.
 ``group_norm_plan`` is the launch plan, which the wrapper hands to the
 kernel.
 
@@ -54,17 +60,32 @@ GN_SHARE_MIN = 8 * 1024
 GN_FILL_CTAS = 128
 GN_MAX_CLUSTER = 16
 GN_MAX_TABLE = 4096          # channels of (scale, bias) a CTA's table holds
+# kernel A's NHWC plan: clusters of at most GN_NHWC_MAX_CLUSTER (on an
+# H100 a cluster of 4 NHWC CTAs cost 5-10 us more than one of 2, PERF.md);
+# the "grid" path (GN_GRID_THREADS-thread CTAs, one per SM) where the
+# activation holds GN_GRID_MIN_BYTES, or a slab GN_GRID_MIN_SLAB in packs
+# under 8 bytes, and for at most GN_GRID_MAX_GROUPS groups
+GN_NHWC_MAX_CLUSTER = 2
+GN_GRID_MIN_BYTES = 16 * 2 ** 20
+GN_GRID_MIN_SLAB = 64 * 1024
+GN_GRID_THREADS = 512
+GN_GRID_MAX_GROUPS = 128
 
 
 class GroupNormPlan(NamedTuple):
     """How kernel A takes one call: ``path`` "single" (one CTA per slab),
-    "cluster" (k CTAs per slab, each holding its share on chip) or "stream"
+    "cluster" (k CTAs per slab, each holding its share on chip), "stream"
     (clusters of k = 16 whose CTAs hold ``held_bytes`` of their share on
-    chip and read the rest twice, the second time from L2); ``ctas`` in the
-    grid of ``threads``-thread CTAs; ``share_bytes``, the part of a slab
-    each CTA owns; ``smem_bytes``, the dynamic shared memory of each CTA:
-    the part held, then the (scale, bias) table of the channels the share
-    touches."""
+    chip and read the rest twice, the second time from L2) or, NHWC only,
+    "grid" (one co-resident CTA per SM, k to an image, each a range of its
+    pixels across all channels, statistics merged through device memory at
+    a grid-wide sync); ``ctas`` in the grid of ``threads``-thread CTAs;
+    ``share_bytes``, the part of a slab each CTA owns; ``smem_bytes``, the
+    dynamic shared memory of each CTA: the part held, then (NCHW) the
+    (scale, bias) table of the channels the share touches. A slab is an
+    (image, group) in NCHW and in NHWC's other paths (read in packs of
+    ``vec_bytes``: a group's run of channels in each pixel) and an image in
+    "grid"."""
     path: str
     k: int
     ctas: int
@@ -72,40 +93,96 @@ class GroupNormPlan(NamedTuple):
     held_bytes: int
     smem_bytes: int
     threads: int
+    vec_bytes: int = 16
+
+
+def nhwc_pack(c: int, num_groups: int, itemsize: int):
+    """Kernel A's NHWC pack over one group's run of channels in a pixel:
+    the widest of 8 bytes, 4 bytes or one element that the run is a whole
+    number of (on an H100, 8-byte packs ran as fast as 16-byte ones at
+    every NHWC shape of an edit, PERF.md); None where a run holds more than
+    256 packs."""
+    run = c // num_groups * itemsize
+    for vb in dict.fromkeys(b for b in (8, 4, itemsize) if b >= itemsize):
+        if run % vb == 0:
+            return vb if run // vb <= 256 else None
+    return None
+
+
+def nhwc_grid_fits(c: int, num_groups: int, itemsize: int) -> bool:
+    """Whether the "grid" path takes C channels: 16-byte packs across all
+    of a pixel's channels, none over more than two groups, at most 512
+    packs a pixel and GN_GRID_MAX_GROUPS groups."""
+    v = 16 // itemsize
+    cpg = c // num_groups
+    return (c % v == 0 and c // v <= 512 and num_groups <= GN_GRID_MAX_GROUPS
+            and all((col * v + v - 1) // cpg - col * v // cpg <= 1
+                    for col in range(c // v)))
 
 
 @functools.lru_cache(maxsize=None)
 def group_norm_plan(n: int, c: int, h: int, w: int, num_groups: int,
-                    itemsize: int) -> GroupNormPlan:
+                    itemsize: int, nhwc: bool = False, sms: int = 132):
     """Kernel A's launch plan for an (n, c, h, w) activation of `itemsize`
     bytes per element in `num_groups` groups, as csrc/group_norm.cu takes
-    it: each CTA owns a contiguous share of whole 16-byte vectors (single
-    elements where H*W is no multiple of a vector) of its (image, group)
-    slab; k as the note on GN_FILL_CTAS says; a CTA still over
-    GN_ONCHIP_MAX at k = 16 streams what it cannot hold."""
-    vec = 16 // itemsize
-    if (h * w) % vec:
-        vec = 1
+    it, on a card of `sms` SMs. NCHW: each CTA owns a contiguous share of
+    whole 16-byte vectors (single elements where H*W is no multiple of a
+    vector) of its (image, group) slab. NHWC (`nhwc`): "grid" where the
+    activation reaches GN_GRID_MIN_BYTES, or where a group's run takes packs
+    under 8 bytes and its slab reaches GN_GRID_MIN_SLAB (the shapes where
+    strided runs of a few bytes could not feed the card, PERF.md); else an
+    (image, group) slab in ``nhwc_pack``'s packs, each CTA a range of its
+    pixels, k at most GN_NHWC_MAX_CLUSTER (None where no pack fits). k as
+    the note on GN_FILL_CTAS says; a CTA still over GN_ONCHIP_MAX at k = 16
+    streams what it cannot hold."""
     cpg = c // num_groups
-    slab = cpg * h * w
-    slabs = n * num_groups
+    if nhwc:
+        vec_bytes = nhwc_pack(c, num_groups, itemsize)
+        slab_bytes = cpg * h * w * itemsize
+        if (sms // n >= 1 and nhwc_grid_fits(c, num_groups, itemsize) and (
+                n * slab_bytes * num_groups >= GN_GRID_MIN_BYTES
+                or ((vec_bytes is None or vec_bytes < 8)
+                    and slab_bytes >= GN_GRID_MIN_SLAB))):
+            k = sms // n
+            share = -(-(h * w) // k) * c * itemsize
+            held = min(share, GN_ONCHIP_MAX)
+            return GroupNormPlan("grid", k, n * k, share, held, held,
+                                 GN_GRID_THREADS, 16)
+        if vec_bytes is None:
+            return None
+        slabs = n * num_groups
+        max_k = GN_NHWC_MAX_CLUSTER
 
-    def share(k):                       # bytes
-        return -(-(slab // vec) // k) * vec * itemsize
+        def share(k):                   # bytes: whole pixels of the slab
+            return -(-(h * w) // k) * cpg * itemsize
 
-    def table(k):                       # channels the share can touch
-        t = min(cpg, -(-share(k) // itemsize // (h * w)) + 1)
-        return t if t <= GN_MAX_TABLE else 0
+        def table(k):                   # each thread holds its channels'
+            return 0
+    else:
+        vec = 16 // itemsize
+        if (h * w) % vec:
+            vec = 1
+        vec_bytes = vec * itemsize
+        slab = cpg * h * w
+        slabs = n * num_groups
+        max_k = GN_MAX_CLUSTER
+
+        def share(k):                       # bytes
+            return -(-(slab // vec) // k) * vec * itemsize
+
+        def table(k):                       # channels the share can touch
+            t = min(cpg, -(-share(k) // itemsize // (h * w)) + 1)
+            return t if t <= GN_MAX_TABLE else 0
 
     def smem(k, held):
         return -(-held // 16) * 16 + 8 * table(k)
 
     k = 1
     if slabs >= GN_FILL_CTAS:
-        while k < GN_MAX_CLUSTER and smem(k, share(k)) > GN_ONCHIP_MAX:
+        while k < max_k and smem(k, share(k)) > GN_ONCHIP_MAX:
             k *= 2
     else:
-        while k < GN_MAX_CLUSTER and (
+        while k < max_k and (
                 share(k) > GN_SHARE_PREF
                 or (slabs * k < GN_FILL_CTAS and share(2 * k) >= GN_SHARE_MIN)):
             k *= 2
@@ -116,7 +193,7 @@ def group_norm_plan(n: int, c: int, h: int, w: int, num_groups: int,
         path = "stream"
     threads = 512 if held >= 64 * 1024 or held < share(k) else 256
     return GroupNormPlan(path, k, slabs * k, share(k), held, smem(k, held),
-                         threads)
+                         threads, vec_bytes)
 
 
 def group_norm_silu_reference(x, weight, bias, *, num_groups: int = 32,
@@ -146,6 +223,18 @@ def _gn_library() -> ctypes.CDLL:
                                        + [i32] * 5 + [ctypes.c_longlong, i32,
                                                       ptr])
     lib.ea_group_norm_silu.restype = i32
+    # x, y, w, b, N, C, H, W, groups, pack bytes, eps, silu, dtype,
+    # wdtype, bdtype, k, held bytes, device, stream
+    lib.ea_group_norm_silu_nhwc.argtypes = (
+        [ptr] * 4 + [i32] * 6 + [ctypes.c_float] + [i32] * 5
+        + [ctypes.c_longlong, i32, ptr])
+    lib.ea_group_norm_silu_nhwc.restype = i32
+    # x, y, w, b, partials, N, C, H, W, groups, CTAs per image, threads,
+    # held bytes, eps, silu, dtype, wdtype, bdtype, device, stream
+    lib.ea_group_norm_silu_nhwc_grid.argtypes = (
+        [ptr] * 5 + [i32] * 7 + [ctypes.c_longlong, ctypes.c_float]
+        + [i32] * 5 + [ptr])
+    lib.ea_group_norm_silu_nhwc_grid.restype = i32
     lib.ea_group_norm_occupancy.argtypes = [i32, i32, ctypes.c_longlong,
                                             ctypes.POINTER(i32)]
     lib.ea_group_norm_occupancy.restype = i32
@@ -195,32 +284,67 @@ def twin_vjp(launch, twin, *inputs):
     return launch(*inputs)
 
 
+def is_channels_last(x) -> bool:
+    """A 4-D tensor laid out NHWC (channels-last) and not NCHW-contiguous."""
+    return (x.dim() == 4 and not x.is_contiguous()
+            and x.is_contiguous(memory_format=torch.channels_last))
+
+
 def _gn_launch(x, weight, bias, num_groups, eps, apply_silu):
-    """One launch of kernel A on checked CUDA inputs (counted)."""
+    """One launch of kernel A on checked CUDA inputs (counted): a
+    channels-last x takes an NHWC path and gives a channels-last output,
+    any other layout the NCHW path."""
     n, c, h, w = x.shape
-    plan = group_norm_plan(n, c, h, w, num_groups, x.element_size())
+    dev = x.device.index
+    nhwc = is_channels_last(x)
+    plan = (group_norm_plan(n, c, h, w, num_groups, x.element_size(),
+                            nhwc=True, sms=_sm_count(dev)) if nhwc else None)
+    if plan is None:
+        nhwc = False
+        x = x.contiguous()
+        plan = group_norm_plan(n, c, h, w, num_groups, x.element_size())
+    elif x.data_ptr() % plan.vec_bytes:
+        x = x.clone(memory_format=torch.channels_last)
     lib = _gn_library()
     # held until the launch is queued: the pointers are into these tensors
-    x, weight, bias = x.contiguous(), weight.contiguous(), bias.contiguous()
+    weight, bias = weight.contiguous(), bias.contiguous()
     y = torch.empty_like(x)
-    dev = x.device.index
-    err = lib.ea_group_norm_silu(
-        x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(), n, c,
-        h, w, num_groups, eps, int(apply_silu), _GN_DTYPE_CODES[x.dtype],
-        _GN_DTYPE_CODES[weight.dtype], _GN_DTYPE_CODES[bias.dtype], plan.k,
-        plan.held_bytes, dev,
-        torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    codes = (_GN_DTYPE_CODES[x.dtype], _GN_DTYPE_CODES[weight.dtype],
+             _GN_DTYPE_CODES[bias.dtype])
+    if not nhwc:
+        err = lib.ea_group_norm_silu(
+            x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(), n,
+            c, h, w, num_groups, eps, int(apply_silu), *codes, plan.k,
+            plan.held_bytes, dev, stream)
+    elif plan.path == "grid":
+        part = torch.empty(plan.ctas * num_groups * 3, dtype=torch.float32,
+                           device=x.device)
+        err = lib.ea_group_norm_silu_nhwc_grid(
+            x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            part.data_ptr(), n, c, h, w, num_groups, plan.k, plan.threads,
+            plan.held_bytes, eps, int(apply_silu), *codes, dev, stream)
+    else:
+        err = lib.ea_group_norm_silu_nhwc(
+            x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(), n,
+            c, h, w, num_groups, plan.vec_bytes, eps, int(apply_silu), *codes,
+            plan.k, plan.held_bytes, dev, stream)
     _raise_on(err, lib, "group_norm_silu")
+    if nhwc:
+        counter = group_norm_silu    # a wrapper put in its place counts on
+        counter.launches_nhwc = getattr(counter, "launches_nhwc", 0) + 1
     group_norm_silu.launches += 1
     return y
 
 
 def group_norm_silu(x, weight, bias, *, num_groups: int = 32,
                     eps: float = 1e-5, apply_silu: bool = True):
-    """GroupNorm(+SiLU) over an NCHW tensor with (C,) scale and bias.
+    """GroupNorm(+SiLU) over an (N, C, H, W) tensor with (C,) scale and bias.
 
     CUDA tensors launch kernel A (one launch, counted in
-    ``group_norm_silu.launches``) with the plan of ``group_norm_plan``,
+    ``group_norm_silu.launches``, and in ``.launches_nhwc`` where a
+    channels-last x takes the NHWC path, whose output is channels-last too)
+    with the plan of ``group_norm_plan``,
     through ``TwinVJP`` where autograd records (its backward recomputes
     through the twin); CPU tensors take the plain twin."""
     twin = functools.partial(group_norm_silu_reference, num_groups=num_groups,
@@ -249,6 +373,7 @@ def group_norm_silu(x, weight, bias, *, num_groups: int = 32,
 
 
 group_norm_silu.launches = 0
+group_norm_silu.launches_nhwc = 0     # the launches that took the NHWC path
 
 
 # ---------------------------------------------------------------------------

@@ -62,6 +62,11 @@
 // product runs in 3xTF32: every operand is split at its fragment load into
 // hi = cvt.rna.tf32(x) and lo = x - hi, and mma.sync m16n8k8 (fp32 sums)
 // forms lo * hi + hi * lo + hi * hi, within ~2^-21 of each fp32 product.
+// The tensor cores truncate their fp32 sums, so the narrow kernel sums
+// each k8 step of S = Q K^T from zero and adds it to S in fp32 (rounded):
+// at SAM's global attention (scale 1, |S| ~ 50) one running sum kept B
+// 7.4-9.3e-5 from an fp64 reference, the step sums 2.1-2.6e-5, for 21 %
+// more time at the training's 64x64 self-attention (PERF.md).
 // Three tf32 passes make the tensor cores' bound 495 / 3 = 165 TFLOP/s;
 // each operand's split costs two instructions at its load, so the issue
 // slots bound it below that. Both products use one fragment pairing (see
@@ -784,6 +789,18 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4], const FragA& a,
   mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
 }
 
+// c += a b in 3xTF32, the step's three products summed from zero and added
+// to c in fp32
+__device__ __forceinline__ void mma_3xtf32_add(float (&c)[4], const FragA& a,
+                                               const FragB& b) {
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_3xtf32(t, a, b);
+  c[0] += t[0];
+  c[1] += t[1];
+  c[2] += t[2];
+  c[3] += t[3];
+}
+
 // The fragment layout. m16n8k8 tf32 gives lane (g = lane / 4, t = lane % 4)
 // A's rows g and g + 8 at columns t and t + 4, B's columns (n) g at rows
 // (k) t and t + 4, and C's rows g and g + 8 at columns 2t and 2t + 1. A
@@ -1044,7 +1061,7 @@ flash_f32_narrow_kernel(F32Params p) {
         FragB kb;
         load_b_rows(kb, kp + nt * 8 * ldq + ks * 8);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_3xtf32(s[mt][nt], a[mt], kb);
+        for (int mt = 0; mt < MT; ++mt) mma_3xtf32_add(s[mt][nt], a[mt], kb);
       }
     }
 

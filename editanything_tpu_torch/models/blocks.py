@@ -1,4 +1,5 @@
-"""Shared UNet/VAE building blocks (NCHW, diffusers module names).
+"""Shared UNet/VAE building blocks (NCHW shapes, diffusers module names;
+channels-last memory where the conv weights are, models/layout.py).
 
 Counterpart of ``editanything_tpu/models/blocks.py``. Module attribute paths
 are the diffusers names the JAX parameter trees follow (``norm1``,
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import os
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -190,7 +192,11 @@ class Transformer2DModel(nn.Module):
                          ref=ref, attn_weight=attn_weight, hw=(h, w))
         if self.use_linear:
             hidden = self.proj_out(hidden)
-        hidden = hidden.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous()
+        # back to x's layout: a view where x is channels-last, where the
+        # token rows already lie as NHWC
+        hidden = hidden.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last if K.is_channels_last(x)
+            else torch.contiguous_format)
         if not self.use_linear:
             hidden = self.proj_out(hidden)
         return hidden + x

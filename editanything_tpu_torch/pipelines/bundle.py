@@ -36,6 +36,7 @@ from editanything_tpu_torch.models.clip_text import CLIPTextModel
 from editanything_tpu_torch.models.controlnet import ControlNetModel
 from editanything_tpu_torch.models.groundingdino import (DINOConfig,
                                                          GroundingDINO)
+from editanything_tpu_torch.models.layout import lay_out_
 from editanything_tpu_torch.models.safety import (CLIPVisionConfig,
                                                   SafetyChecker,
                                                   SafetyCheckerModel)
@@ -67,6 +68,18 @@ class ModelBundle:
     safety: Any = None
     # (path, multiplier, {"merged", "skipped"}) of each LoRA merged at load
     lora_counts: list = dataclasses.field(default_factory=list)
+
+    def __post_init__(self):
+        self.lay_out()
+
+    def lay_out(self) -> None:
+        """Every conv weight of the UNet, the VAE and the ControlNets
+        channels-last where it is half precision on the GPU, else NCHW, in
+        its own storage (models/layout.py): done where the bundle is built
+        and wherever it moves."""
+        for m in [self.unet, self.vae] + [
+                net for _, net in self.controlnets.values()]:
+            lay_out_(m)
 
     @property
     def device(self) -> torch.device:
@@ -108,6 +121,7 @@ class ModelBundle:
             m.to(device=device, dtype=dtype)
         if dtype is not None:
             self.dtype = dtype
+        self.lay_out()
         return self
 
 

@@ -133,6 +133,9 @@ def _kernel_launches() -> dict:
     from editanything_tpu_torch.core import kernels as K
     return {"flash_attention": FA.flash_attention.launches,
             "group_norm_silu": K.group_norm_silu.launches,
+            # of those, the launches that took kernel A's NHWC path
+            "group_norm_silu_nhwc": getattr(K.group_norm_silu,
+                                            "launches_nhwc", 0),
             "sam_twoway": K.sam_twoway.launches,
             "sam_upscale_hyper": K.sam_upscale_hyper.launches,
             "resnet_fused": K.resnet_fused.launches}

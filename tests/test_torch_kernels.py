@@ -199,6 +199,66 @@ def test_group_norm_plan_paths(shape, itemsize, want):
     assert (plan.path, plan.k, plan.ctas, plan.share_bytes) == want
 
 
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_group_norm_plan_nhwc_fits_every_traced_shape(itemsize):
+    """Every GroupNorm of the request has an NHWC plan on a 132-SM card:
+    "grid" with one CTA per SM whose ranges cover each image, each holding
+    at most GN_ONCHIP_MAX; else (image, group) slabs in packs that a
+    group's run is a whole number of, in clusters of at most 2, held on
+    chip by CTAs of at most 227 KB."""
+    for model, counter in _traced_group_norms().items():
+        for (shape, groups, _eps, _silu) in counter:
+            n, c, h, w = shape
+            plan = tk.group_norm_plan(*shape, groups, itemsize, nhwc=True,
+                                      sms=132)
+            assert plan is not None, shape
+            if plan.path == "grid":
+                assert plan.ctas == n * plan.k <= 132
+                assert plan.k * plan.share_bytes >= h * w * c * itemsize
+                assert plan.held_bytes == min(plan.share_bytes,
+                                              tk.GN_ONCHIP_MAX)
+                assert plan.vec_bytes == 16
+                assert tk.nhwc_grid_fits(c, groups, itemsize)
+            else:
+                assert plan.k in (1, 2) and plan.ctas == n * groups * plan.k
+                assert (c // groups * itemsize) % plan.vec_bytes == 0
+                assert plan.held_bytes == plan.share_bytes <= plan.smem_bytes
+                assert plan.smem_bytes <= min(SMEM_PER_CTA, tk.GN_ONCHIP_MAX)
+                assert plan.k * plan.share_bytes >= (c // groups * h * w
+                                                     * itemsize)
+
+
+@pytest.mark.parametrize("shape,itemsize,want", [
+    ((4, 1280, 8, 8), 2, ("single", 1, 128, 8)),
+    ((4, 320, 32, 32), 2, ("single", 1, 128, 4)),
+    ((4, 640, 32, 32), 2, ("single", 1, 128, 8)),
+    ((4, 320, 64, 64), 2, ("grid", 33, 132, 16)),
+    ((4, 640, 64, 64), 2, ("grid", 33, 132, 16)),
+    ((1, 512, 64, 64), 2, ("cluster", 2, 64, 8)),
+    ((2, 256, 512, 512), 2, ("grid", 66, 132, 16)),
+    ((2, 32, 7, 9), 2, ("single", 1, 64, 2)),
+    ((2, 32, 7, 9), 4, ("single", 1, 64, 4)),
+])
+def test_group_norm_plan_nhwc_paths(shape, itemsize, want):
+    plan = tk.group_norm_plan(*shape, 32, itemsize, nhwc=True, sms=132)
+    assert (plan.path, plan.k, plan.ctas, plan.vec_bytes) == want
+
+
+@pytest.mark.parametrize("cpg,bf16,fp32,grid", [
+    (4, 8, 8, True), (8, 8, 8, True), (10, 4, 8, True), (16, 8, 8, True),
+    (20, 8, 8, True), (30, 4, 8, True), (40, 8, 8, True), (60, 8, 8, True),
+    (80, 8, 8, True), (1, 2, 4, False)])
+def test_nhwc_packs_of_every_group_width(cpg, bf16, fp32, grid):
+    """The unit path's pack (the widest of 8 and 4 bytes and one element
+    that a group's run is whole packs of) at C / 32 of the SD models; the
+    grid path's 16-byte vectors straddle at most two groups down to 4
+    channels a group, never at 1."""
+    c = 32 * cpg
+    assert tk.nhwc_pack(c, 32, 2) == bf16
+    assert tk.nhwc_pack(c, 32, 4) == fp32
+    assert tk.nhwc_grid_fits(c, 32, 2) is grid
+
+
 # Every fp32 shape (B, H, N, M, Dqk, Dv) the port hands kernel B on the card:
 # tests/test_torch_kernels_cuda.py's cases (ATTN_CASES at batch 2 x 3 heads,
 # WIDE_CASES, the safety checker's, BLIP-2's, GroundingDINO's decoder, the

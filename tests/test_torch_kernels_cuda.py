@@ -318,17 +318,25 @@ def test_tiny_vlpart_on_cuda_matches_cpu(cuda_device):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 6.25e-2)])
 @pytest.mark.parametrize("eps,apply_silu", GN_CASES)
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
 def test_group_norm_silu_kernel_matches_plain(cuda_device, dtype, tol, eps,
-                                              apply_silu):
+                                              apply_silu, layout):
+    """Channels-last x takes the NHWC path (counted in ``launches_nhwc``)
+    and gives a channels-last output."""
     g = torch.Generator(cuda_device).manual_seed(0)
     x = (torch.randn(2, 128, 96, 96, generator=g, device=cuda_device) * 3
          + 0.5).to(dtype)
+    if layout == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
     w = torch.randn(128, generator=g, device=cuda_device).to(dtype)
     b = torch.randn(128, generator=g, device=cuda_device).to(dtype)
     before = tk.group_norm_silu.launches
+    before_nhwc = tk.group_norm_silu.launches_nhwc
     got = tk.group_norm_silu(x, w, b, eps=eps, apply_silu=apply_silu)
     torch.cuda.synchronize()
     assert tk.group_norm_silu.launches == before + 1
+    assert tk.group_norm_silu.launches_nhwc == before_nhwc + (layout == "nhwc")
+    assert tk.is_channels_last(got) == (layout == "nhwc")
     want = tk.group_norm_silu_reference(x, w, b, eps=eps,
                                         apply_silu=apply_silu)
     assert (got.float() - want.float()).abs().max().item() <= tol
@@ -349,54 +357,101 @@ def _group_norm_inputs(device, dtype, shape, seed):
 
 def _group_norm_check(x, w, b, tol, **kw):
     before = tk.group_norm_silu.launches
+    before_nhwc = tk.group_norm_silu.launches_nhwc
     got = tk.group_norm_silu(x, w, b, **kw)
     torch.cuda.synchronize()
     assert tk.group_norm_silu.launches == before + 1
+    nhwc = tk.is_channels_last(x)
+    assert tk.group_norm_silu.launches_nhwc == before_nhwc + nhwc
+    assert tk.is_channels_last(got) == nhwc
     want = tk.group_norm_silu_reference(x, w, b, **kw)
     assert got.shape == x.shape and got.dtype == x.dtype
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
 GN_TOLS = {torch.float32: 1e-4, torch.bfloat16: 6.25e-2, torch.float16: 1e-2}
-# (shape, dtype, plan path, k): one CTA per slab (the UNet's 8x8 level and
-# 64x64x320 in fp16), clusters of 2, 4, 8 and 16 (UNet 64x64x960, the
-# VAE's 64x64x512 at batch 1 and 128x128x512 at batch 2, the VAE encoder's
-# 2 MB slabs), and the slabs held in part and streamed through L2 (the VAE
-# decoder's 4 MB slabs in bf16; 4 MB of fp32, also with single-element
-# vectors, H*W odd)
+# (shape, dtype, plan path, k, layout): NCHW: one CTA per slab (the UNet's
+# 8x8 level and 64x64x320 in fp16), clusters of 2, 4, 8 and 16 (UNet
+# 64x64x960, the VAE's 64x64x512 at batch 1 and 128x128x512 at batch 2,
+# the VAE encoder's 2 MB slabs), and the slabs held in part and streamed
+# through L2 (the VAE decoder's 4 MB slabs in bf16; 4 MB of fp32, also
+# with single-element vectors, H*W odd). NHWC: one CTA per slab in 8- and
+# 4-byte packs (the UNet's 8x8 and 32x32x320 levels), clusters of 2 (the
+# VAE's 64x64x512 at batch 1) and the grid of one CTA per SM (the UNet's
+# 64x64x320 and the VAE decoder's 4 MB slabs, read in part twice; in fp16
+# and fp32 too); k for the grid is the card's SMs over the batch
 GN_PLAN_CASES = [
-    ((4, 1280, 8, 8), torch.bfloat16, "single", 1),
-    ((4, 320, 64, 64), torch.float16, "single", 1),
-    ((4, 960, 64, 64), torch.bfloat16, "cluster", 2),
-    ((1, 512, 64, 64), torch.bfloat16, "cluster", 4),
-    ((2, 512, 128, 128), torch.bfloat16, "cluster", 8),
-    ((1, 128, 512, 512), torch.bfloat16, "cluster", 16),
-    ((1, 128, 512, 512), torch.float32, "stream", 16),
-    ((2, 256, 512, 512), torch.bfloat16, "stream", 16),
-    ((1, 32, 1023, 1025), torch.float32, "stream", 16),
+    ((4, 1280, 8, 8), torch.bfloat16, "single", 1, "nchw"),
+    ((4, 320, 64, 64), torch.float16, "single", 1, "nchw"),
+    ((4, 960, 64, 64), torch.bfloat16, "cluster", 2, "nchw"),
+    ((1, 512, 64, 64), torch.bfloat16, "cluster", 4, "nchw"),
+    ((2, 512, 128, 128), torch.bfloat16, "cluster", 8, "nchw"),
+    ((1, 128, 512, 512), torch.bfloat16, "cluster", 16, "nchw"),
+    ((1, 128, 512, 512), torch.float32, "stream", 16, "nchw"),
+    ((2, 256, 512, 512), torch.bfloat16, "stream", 16, "nchw"),
+    ((1, 32, 1023, 1025), torch.float32, "stream", 16, "nchw"),
+    ((4, 1280, 8, 8), torch.bfloat16, "single", 1, "nhwc"),
+    ((4, 320, 32, 32), torch.bfloat16, "single", 1, "nhwc"),
+    ((4, 640, 32, 32), torch.float16, "single", 1, "nhwc"),
+    ((1, 512, 64, 64), torch.bfloat16, "cluster", 2, "nhwc"),
+    ((4, 320, 64, 64), torch.bfloat16, "grid", None, "nhwc"),
+    ((4, 960, 64, 64), torch.float16, "grid", None, "nhwc"),
+    ((2, 256, 512, 512), torch.bfloat16, "grid", None, "nhwc"),
+    ((2, 512, 128, 128), torch.float32, "grid", None, "nhwc"),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,path,k", GN_PLAN_CASES)
+@pytest.mark.parametrize("shape,dtype,path,k,layout", GN_PLAN_CASES)
 def test_group_norm_silu_kernel_every_plan_path(cuda_device, shape, dtype,
-                                                path, k):
-    plan = tk.group_norm_plan(*shape, 32, torch.finfo(dtype).bits // 8)
-    assert (plan.path, plan.k) == (path, k)
+                                                path, k, layout):
+    nhwc = layout == "nhwc"
+    sms = tk._sm_count(cuda_device.index or 0)
+    plan = tk.group_norm_plan(*shape, 32, torch.finfo(dtype).bits // 8,
+                              nhwc=nhwc, sms=sms)
+    assert (plan.path, plan.k) == (path, k if k else sms // shape[0])
     x, w, b = _group_norm_inputs(cuda_device, dtype, shape, seed=1)
+    if nhwc:
+        x = x.contiguous(memory_format=torch.channels_last)
     _group_norm_check(x, w, b, GN_TOLS[dtype], eps=1e-6)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("batch", [1, 4])
 @pytest.mark.parametrize("eps,apply_silu", GN_CASES)
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
 def test_group_norm_silu_kernel_ragged_one_channel_groups(cuda_device, dtype,
                                                           batch, eps,
-                                                          apply_silu):
-    """7x9 images (no 16-byte vectors) with one channel per group."""
+                                                          apply_silu, layout):
+    """7x9 images (no 16-byte vectors in NCHW) with one channel per group
+    (single elements in NHWC too)."""
     x, w, b = _group_norm_inputs(cuda_device, dtype, (batch, 32, 7, 9), seed=2)
+    if layout == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
     _group_norm_check(x, w, b, GN_TOLS[dtype], num_groups=32, eps=eps,
+                      apply_silu=apply_silu)
+
+
+# NHWC at every channels-per-group of the SD models (C / 32 = 4, 8, 16 in
+# the VAE; 10, 20, 30, 40, 60, 80 in the UNet and ControlNets, where a
+# 16-byte vector of bf16 straddles two groups), at a ragged 7x9 and at the
+# UNet's 8x8 and 32x32 levels
+GN_NHWC_WIDTH_CASES = [(c, hw) for c in (128, 256, 320, 512, 640, 960, 1280,
+                                         1920, 2560)
+                       for hw in ((7, 9), (8, 8), (32, 32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("apply_silu", [True, False])
+@pytest.mark.parametrize("c,hw", GN_NHWC_WIDTH_CASES)
+def test_group_norm_silu_kernel_nhwc_every_group_width(cuda_device, dtype,
+                                                       apply_silu, c, hw):
+    x, w, b = _group_norm_inputs(cuda_device, dtype, (2, c) + hw, seed=3)
+    x = x.contiguous(memory_format=torch.channels_last)
+    _group_norm_check(x, w, b, GN_TOLS[dtype], eps=1e-6,
                       apply_silu=apply_silu)
 
 

@@ -32,6 +32,7 @@ from editanything_tpu.models import vae as JV
 from editanything_tpu.pipelines.bundle import random_bundle as jax_random_bundle
 from editanything_tpu.text import tokenizer as JT
 from editanything_tpu_torch.checkpoints.convert import state_dict_from_tree
+from editanything_tpu_torch.core import kernels as tk
 from editanything_tpu_torch.models import blocks as TB
 from editanything_tpu_torch.models import config as TC
 from editanything_tpu_torch.models import controlnet as TCN
@@ -360,3 +361,138 @@ def test_state_dict_round_trips_to_jax_tree(jbundle, which):
     assert sorted(back) == sorted(want)
     for name, arr in want.items():
         np.testing.assert_array_equal(back[name], arr, err_msg=name)
+
+
+# ---- memory layout (models/layout.py) --------------------------------------
+# The same tiny models with every conv weight channels-last and channels-last
+# inputs give the contiguous models' outputs: fp32 sums of the convs taken in
+# other orders, 1e-5 absolute on outputs of magnitude ~1 (measured ~2e-6 for
+# the UNet and 1e-5 for the VAE decoder's deeper stack).
+LAYOUT_TOL = 1e-4
+
+
+def _channels_last_copy(module):
+    import copy
+    from editanything_tpu_torch.models import layout
+    out = copy.deepcopy(module)
+    for m in out.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            layout.relayout_(m.weight, True)
+    return out
+
+
+@pytest.fixture(scope="module")
+def tiny_port_bundle():
+    from editanything_tpu_torch.pipelines.bundle import random_bundle
+    return random_bundle(tiny=True, device="cpu", dtype=torch.float32,
+                         controlnet_names=("sam",))
+
+
+def test_unet_and_controlnet_match_in_channels_last(tiny_port_bundle):
+    b = tiny_port_bundle
+    unet, cn = b.unet, b.controlnets["sam"][1]
+    unet_cl, cn_cl = _channels_last_copy(unet), _channels_last_copy(cn)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 4, 16, 16, generator=g)
+    ctx = torch.randn(2, 8, 32, generator=g)
+    hint = torch.rand(2, 3, 128, 128, generator=g)
+    t = torch.tensor([500, 20])
+    cl = torch.channels_last
+    with torch.no_grad():
+        down, mid = cn(x, t, ctx, hint)
+        want = unet(x, t, ctx, down_block_residuals=down,
+                    mid_block_residual=mid)
+        down_cl, mid_cl = cn_cl(x.contiguous(memory_format=cl), t, ctx,
+                                hint.contiguous(memory_format=cl))
+        got = unet_cl(x.contiguous(memory_format=cl), t, ctx,
+                      down_block_residuals=down_cl, mid_block_residual=mid_cl)
+    assert tk.is_channels_last(got)
+    for a, c in zip(down + (mid,), down_cl + (mid_cl,)):
+        assert (a - c).abs().max().item() <= LAYOUT_TOL
+    assert (got - want).abs().max().item() <= LAYOUT_TOL
+
+
+def test_vae_matches_in_channels_last(tiny_port_bundle):
+    vae = tiny_port_bundle.vae
+    vae_cl = _channels_last_copy(vae)
+    g = torch.Generator().manual_seed(1)
+    z = torch.randn(1, 4, 8, 8, generator=g)
+    img = torch.rand(1, 3, 64, 64, generator=g) * 2 - 1
+    cl = torch.channels_last
+    with torch.no_grad():
+        dec, dec_cl = vae.decode(z), vae_cl.decode(z.contiguous(memory_format=cl))
+        enc = vae.encode(img)
+        enc_cl = vae_cl.encode(img.contiguous(memory_format=cl))
+    assert tk.is_channels_last(dec_cl)
+    assert (dec - dec_cl).abs().max().item() <= LAYOUT_TOL
+    for a, c in zip(enc, enc_cl):
+        assert (a - c).abs().max().item() <= LAYOUT_TOL
+
+
+@pytest.mark.parametrize("shape", [(6, 5, 3, 3), (8, 4, 1, 1), (4, 1, 3, 3)])
+def test_relayout_keeps_storage_and_values(shape):
+    """A conv weight relaid in place, both ways: the same ``data_ptr()``,
+    the same values, the canonical strides of the layout; a view of a
+    larger buffer (a state dict loaded by assignment) leaves its
+    neighbours as they were."""
+    from editanything_tpu_torch.models import layout
+    buf = torch.randn(2 * int(np.prod(shape)) + 3,
+                      generator=torch.Generator().manual_seed(2))
+    ref = buf.clone()
+    n = int(np.prod(shape))
+    p = torch.nn.Parameter(buf[3:3 + n].view(shape))
+    want = p.detach().clone()
+    ptr = p.data_ptr()
+    for cl in (True, False):
+        assert layout.relayout_(p, cl)
+        assert p.data_ptr() == ptr and torch.equal(p.detach(), want)
+        fmt = torch.channels_last if cl else torch.contiguous_format
+        assert p.is_contiguous(memory_format=fmt)
+        assert not layout.relayout_(p, cl)
+    assert torch.equal(buf[:3], ref[:3]) and torch.equal(buf[3 + n:],
+                                                         ref[3 + n:])
+
+
+@pytest.mark.parametrize("dtype,device_type,want", [
+    (torch.bfloat16, "cuda", True), (torch.float16, "cuda", True),
+    (torch.float32, "cuda", False), (torch.bfloat16, "cpu", False),
+    (torch.float16, "cpu", False), (torch.bfloat16, "meta", False),
+    (torch.float32, "meta", False)])
+def test_layout_rule_is_half_precision_on_cuda(dtype, device_type, want):
+    from editanything_tpu_torch.models import layout
+    assert layout.channels_last_for(dtype, device_type) is want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bundle_keeps_meta_cpu_and_fp32_weights_nchw(dtype):
+    """A bundle built on the meta device or the CPU, in fp32 or bf16, holds
+    every conv weight NCHW; a weight laid channels-last by hand goes back to
+    NCHW when the bundle moves, in its own storage."""
+    from editanything_tpu_torch.models import layout
+    from editanything_tpu_torch.pipelines.bundle import (ModelBundle,
+                                                         random_bundle)
+    cpu = random_bundle(tiny=True, device="cpu", dtype=dtype,
+                        controlnet_names=("sam",))
+    meta = ModelBundle(
+        unet_cfg=cpu.unet_cfg, vae_cfg=cpu.vae_cfg, text_cfg=cpu.text_cfg,
+        unet=UNet2DConditionModel(cpu.unet_cfg).to("meta", dtype),
+        vae=AutoencoderKL(cpu.vae_cfg).to("meta", dtype), text=cpu.text,
+        tokenizer=cpu.tokenizer,
+        controlnets={"sam": (cpu.controlnets["sam"][0], ControlNetModel(
+            cpu.controlnets["sam"][0]).to("meta", dtype))}, dtype=dtype)
+
+    def convs(bundle):
+        return [m.weight for net in (bundle.unet, bundle.vae,
+                                     bundle.controlnets["sam"][1])
+                for m in net.modules() if isinstance(m, torch.nn.Conv2d)]
+    for bundle in (cpu, meta):
+        assert all(w.is_contiguous() and w.stride() == layout._strides(
+            w.shape, False) for w in convs(bundle))
+    w = cpu.unet.conv_in.weight
+    ptr, want = w.data_ptr(), w.detach().clone()
+    layout.relayout_(w, True)
+    assert not w.is_contiguous()
+    cpu.to("cpu")
+    w = cpu.unet.conv_in.weight
+    assert w.is_contiguous() and w.data_ptr() == ptr
+    assert torch.equal(w.detach(), want)

@@ -201,3 +201,20 @@ def test_the_port_opens_no_profiler_range():
     hits = [str(p.relative_to(root)) for p in root.rglob("*.py")
             if call.search(p.read_text())]
     assert hits == [], hits
+
+
+def test_snapshot_lists_kernel_a_nhwc_launches(monkeypatch):
+    """``group_norm_silu_nhwc``, the launches that took kernel A's NHWC
+    path, beside ``group_norm_silu``; a wrapper put in the kernel's place
+    that copies only ``launches`` (as a benchmark harness does) reads 0
+    until the NHWC path counts on it."""
+    from editanything_tpu_torch.core import kernels as K
+    launches = trace.snapshot()["launches"]
+    assert launches["group_norm_silu_nhwc"] == K.group_norm_silu.launches_nhwc
+    assert launches["group_norm_silu_nhwc"] <= launches["group_norm_silu"]
+
+    def wrapped(*args, **kwargs):
+        return K.group_norm_silu(*args, **kwargs)
+    wrapped.launches = K.group_norm_silu.launches
+    monkeypatch.setattr(K, "group_norm_silu", wrapped)
+    assert trace.snapshot()["launches"]["group_norm_silu_nhwc"] == 0
